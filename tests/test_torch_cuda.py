@@ -1,0 +1,89 @@
+"""The port on the card (marked ``cuda``; skipped without a CUDA device): the
+hand-written NN-search kernel against its plain PyTorch version, and the
+two-view slice on the card against the same slice on the CPU.
+
+This file imports no jax, so it runs where jax is absent:
+    python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+from tpusfm_torch.kernels import distance as td
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f32", "all_masked", "duplicates", "bf16", "hamming"])
+def test_cuda_kernel_matches_plain_version(cuda_device, case):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def unit(*s):
+        x = torch.randn(*s, device=cuda_device, generator=g)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    metric = "l2"
+    q, db = unit(2, 1000, 128), unit(2, 1500, 128)
+    mask = (torch.rand(2, 1500, device=cuda_device, generator=g) > 0.1).float()
+    if case == "all_masked":
+        mask = torch.zeros_like(mask)
+    elif case == "duplicates":
+        db[:, 700] = db[:, 3]
+        db[:, 1400] = db[:, 3]
+        q[:, :5] = db[:, 3:4]
+        mask = torch.ones_like(mask)
+    elif case == "bf16":
+        q, db = q.bfloat16(), db.bfloat16()
+    elif case == "hamming":
+        metric = "hamming"
+        q = torch.randint(-2**31, 2**31 - 1, (2048, 8), device=cuda_device, generator=g,
+                          dtype=torch.int32)
+        db = torch.randint(-2**31, 2**31 - 1, (2048, 8), device=cuda_device, generator=g,
+                           dtype=torch.int32)
+        mask = torch.ones(2048, device=cuda_device)
+    before = td.launches
+    ki, kb, ks = td.nn_search(q, db, mask, metric=metric)
+    torch.cuda.synchronize()
+    assert td.launches == before + 1
+    pi, pb, ps = td.nn_search_torch(q, db, mask, metric=metric)
+    if metric == "hamming":
+        assert torch.equal(kb, pb) and torch.equal(ks, ps) and torch.equal(ki, pi)
+        return
+    torch.testing.assert_close(kb, pb, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(ks, ps, rtol=1e-5, atol=1e-4)
+    clear = (pb - ps).abs() > 1e-4
+    assert torch.equal(ki[clear], pi[clear])
+    if case == "duplicates":
+        assert bool((ki[:, :5] == 3).all())
+    if case == "all_masked":
+        assert bool((ki == -1).all())
+
+
+@pytest.mark.cuda
+def test_two_view_on_cuda_matches_cpu(cuda_device):
+    from chip_smoke import render_small_pair
+    from tpusfm_torch.config import MatchConfig, PipelineConfig, RansacConfig, SiftConfig
+    from tpusfm_torch.features.sift import sift_detect_and_compute
+    from tpusfm_torch.sfm import two_view_sfm
+    from tpusfm_torch.types import CameraIntrinsics
+
+    g1, g2 = render_small_pair()
+    cfg = PipelineConfig(sift=SiftConfig(max_features=256, upsample=False),
+                         match=MatchConfig(max_matches=256),
+                         ransac=RansacConfig(n_hypotheses=128, threshold_px=2.0))
+    res = {}
+    for dev in ("cpu", cuda_device):
+        f1, f2 = (sift_detect_and_compute(torch.from_numpy(g).to(dev), cfg.sift) for g in (g1, g2))
+        res[str(dev)] = two_view_sfm(f1, f2, CameraIntrinsics.ideal(160.0, 160.0, 80.0, 80.0, dev),
+                                     "bf", cfg=cfg)
+    rc, rg = res["cpu"], res["cuda"]
+    assert (rg.R.cpu() - rc.R).abs().max() < 1e-3
+    assert float(rg.t.cpu() @ rc.t) > 0.999
+    assert abs(int(rg.n_inliers) - int(rc.n_inliers)) <= 3

@@ -1,0 +1,142 @@
+"""Parity of the port's NN search (tpusfm_torch.kernels.distance) with
+tpusfm's XLA path and its Pallas kernel (interpret mode) on CPU. The CUDA
+kernel is held against its plain version in test_torch_cuda.py."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from tpusfm.kernels import distance as jd
+from tpusfm_torch.kernels import distance as td
+
+torch.set_num_threads(2)
+
+BIG = 1e30
+
+
+def _close(got, ref):
+    """idx equal; best and second within rtol 1e-5, atol 1e-4."""
+    gi, gb, gs = (np.asarray(a) for a in got)
+    ri, rb, rs = (np.asarray(a) for a in ref)
+    np.testing.assert_array_equal(gi, ri)
+    np.testing.assert_allclose(gb, rb, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(gs, rs, rtol=1e-5, atol=1e-4)
+
+
+def _f32_case(seed=1, nq=256, ndb=512, d=128):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    db = rng.normal(size=(ndb, d)).astype(np.float32)
+    mask = np.ones(ndb, np.float32)
+    mask[400:] = 0.0
+    mask[::7] = 0.0
+    return q, db, mask
+
+
+def _torch(q, db, mask, **kw):
+    return td.nn_search_torch(torch.from_numpy(q), torch.from_numpy(db),
+                              torch.from_numpy(mask), **kw)
+
+
+def test_nn_search_torch_matches_xla_f32_masked():
+    q, db, mask = _f32_case(nq=100, ndb=300, d=37)
+    ref = jd.nn_search_xla(jnp.array(q), jnp.array(db), jnp.array(mask), block=64)
+    _close(_torch(q, db, mask, block=64), ref)
+
+
+def test_nn_search_torch_matches_pallas_interpret_f32_masked():
+    q, db, mask = _f32_case()
+    with pltpu.force_tpu_interpret_mode():
+        ref = jd.nn_search_pallas(jnp.array(q), jnp.array(db), jnp.array(mask))
+    _close(_torch(q, db, mask), ref)
+
+
+@pytest.mark.parametrize("ref_path", ["xla", "pallas"])
+def test_nn_search_torch_all_masked(ref_path):
+    q, db, _ = _f32_case()
+    mask = np.zeros(db.shape[0], np.float32)
+    if ref_path == "xla":
+        ref = jd.nn_search_xla(jnp.array(q), jnp.array(db), jnp.array(mask))
+    else:
+        with pltpu.force_tpu_interpret_mode():
+            ref = jd.nn_search_pallas(jnp.array(q), jnp.array(db), jnp.array(mask))
+    got = _torch(q, db, mask)
+    assert (got[0].numpy() == -1).all()
+    assert (got[1].numpy() == np.float32(BIG)).all() and (got[2].numpy() == np.float32(BIG)).all()
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("ref_path", ["xla", "pallas"])
+def test_nn_search_torch_hamming_exact(ref_path):
+    rng = np.random.default_rng(2)
+    q = rng.integers(0, 2**32, size=(256, 8), dtype=np.uint32)
+    db = rng.integers(0, 2**32, size=(384, 8), dtype=np.uint32)
+    mask = np.ones(384, np.float32)
+    if ref_path == "xla":
+        ri, rb, rs = jd.nn_search_xla(jnp.array(q), jnp.array(db), jnp.array(mask), metric="hamming")
+    else:
+        with pltpu.force_tpu_interpret_mode():
+            ri, rb, rs = jd.nn_search_pallas(jnp.array(q), jnp.array(db), jnp.array(mask),
+                                             metric="hamming")
+    gi, gb, gs = td.nn_search_torch(torch.from_numpy(q), torch.from_numpy(db), metric="hamming")
+    np.testing.assert_array_equal(gb.numpy(), np.asarray(rb))
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(rs))
+    # integer distances tie often: indices are compared where the best is unique
+    unique = np.asarray(rb) < np.asarray(rs)
+    np.testing.assert_array_equal(gi.numpy()[unique], np.asarray(ri)[unique])
+    pop = np.vectorize(lambda x: bin(int(x)).count("1"))
+    full = pop(q[:, None, :] ^ db[None, :, :]).sum(-1)
+    np.testing.assert_array_equal(gi.numpy(), full.argmin(1))  # lowest index of the ties
+
+
+def test_nn_search_torch_matches_xla_bf16():
+    q, db, mask = _f32_case(seed=3, nq=120, ndb=260, d=64)
+    qb, dbb = jnp.array(q, jnp.bfloat16), jnp.array(db, jnp.bfloat16)
+    ref = jd.nn_search_xla(qb, dbb, jnp.array(mask))
+    got = td.nn_search_torch(torch.from_numpy(q).bfloat16(), torch.from_numpy(db).bfloat16(),
+                             torch.from_numpy(mask))
+    _close(got, ref)
+
+
+def test_nn_search_torch_duplicates_take_lowest_index():
+    q, db, _ = _f32_case(seed=4, nq=16, ndb=300, d=32)
+    db[150] = db[40]
+    db[299] = db[40]
+    q[:4] = db[40] + 1e-3
+    mask = np.ones(300, np.float32)
+    ref = jd.nn_search_xla(jnp.array(q), jnp.array(db), jnp.array(mask), block=128)
+    got = _torch(q, db, mask, block=128)
+    assert (got[0].numpy()[:4] == 40).all()
+    np.testing.assert_allclose(got[1].numpy()[:4], got[2].numpy()[:4], rtol=1e-6)
+    _close(got, ref)
+
+
+def test_unpack_bits_matches_tpusfm():
+    x = np.random.default_rng(5).integers(0, 2**32, size=(6, 8), dtype=np.uint32)
+    ref = np.asarray(jd.unpack_bits(jnp.array(x)), np.float32)
+    got = td.unpack_bits(torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
+def test_nn_search_batch_axis_equals_per_pair():
+    q, db, mask = _f32_case(seed=6, nq=50, ndb=90, d=20)
+    q2, db2, mask2 = _f32_case(seed=7, nq=50, ndb=90, d=20)
+    mask2[:30] = 0.0
+    got = td.nn_search(torch.from_numpy(np.stack([q, q2])), torch.from_numpy(np.stack([db, db2])),
+                       torch.from_numpy(np.stack([mask, mask2])))
+    for b, args in enumerate(((q, db, mask), (q2, db2, mask2))):
+        one = _torch(*args)
+        for x, y in zip(got, one):
+            torch.testing.assert_close(x[b], y)
+
+
+def test_nn_search_dispatch_stays_on_cpu_without_launch():
+    q, db, mask = _f32_case(seed=8, nq=10, ndb=20, d=8)
+    before = td.launches
+    got = td.nn_search(torch.from_numpy(q), torch.from_numpy(db), torch.from_numpy(mask))
+    assert td.launches == before
+    _close(got, _torch(q, db, mask))
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        td.nn_search_cuda(torch.from_numpy(q), torch.from_numpy(db))

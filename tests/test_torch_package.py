@@ -1,0 +1,121 @@
+"""The port's package boundary: it never imports jax, and its shared-state
+helpers (configs, containers, padding, I/O) behave like tpusfm's."""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import tpusfm.config as jcfg
+from tpusfm.io.dataset import has_reference_data as jax_has_reference_data
+from tpusfm.types import Keypoints as JaxKeypoints
+from tpusfm.types import Matches as JaxMatches
+from tpusfm.utils.pad import pad_axis as jax_pad_axis
+from tpusfm.utils.pad import pad_to_multiple as jax_pad_to_multiple
+import tpusfm_torch.config as tcfg
+from tpusfm_torch.types import CameraIntrinsics, Keypoints, Matches
+from tpusfm_torch.utils.convert import config_from, features_from_numpy, intrinsics_from_numpy
+from tpusfm_torch.utils.pad import pad_axis, pad_to_multiple, round_up
+
+torch.set_num_threads(2)
+
+_MODULES = [
+    "tpusfm_torch", "tpusfm_torch.config", "tpusfm_torch.types", "tpusfm_torch.utils.pad",
+    "tpusfm_torch.utils.convert", "tpusfm_torch.io", "tpusfm_torch.io.dataset",
+    "tpusfm_torch.io.image", "tpusfm_torch.kernels.distance", "tpusfm_torch.match.bf",
+    "tpusfm_torch.geometry.projection", "tpusfm_torch.geometry.undistort",
+    "tpusfm_torch.geometry.triangulate", "tpusfm_torch.geometry.five_point",
+    "tpusfm_torch.geometry.epipolar", "tpusfm_torch.geometry.pose",
+    "tpusfm_torch.features.scalespace", "tpusfm_torch.features.sift",
+    "tpusfm_torch.sfm", "tpusfm_torch.sfm.two_view",
+]
+
+
+def test_importing_the_port_does_not_import_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {_MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'tpusfm.'))"
+            " or k == 'tpusfm')\n"
+            "assert not bad, bad\n"
+            "import torch\n"
+            "assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("name", ["SiftConfig", "OrbConfig", "MatchConfig", "GmsConfig",
+                                  "LogosConfig", "RansacConfig", "StereoBMConfig",
+                                  "CalibConfig", "BaConfig", "PipelineConfig"])
+def test_configs_are_tpusfms(name):
+    j, t = getattr(jcfg, name), getattr(tcfg, name)
+    assert dataclasses.asdict(j()) == dataclasses.asdict(t())
+    changed = dataclasses.replace(j(), **{dataclasses.fields(j)[0].name: dataclasses.fields(j)[0].default})
+    assert dataclasses.asdict(config_from(t, changed)) == dataclasses.asdict(changed)
+    pc = jcfg.PipelineConfig(ransac=jcfg.RansacConfig(n_hypotheses=7, seed=3))
+    assert config_from(tcfg.PipelineConfig, pc).ransac == tcfg.RansacConfig(n_hypotheses=7, seed=3)
+
+
+@pytest.mark.parametrize("size,axis,value", [(7, 0, 0), (9, 1, -1), (5, 0, 2)])
+def test_pad_matches_tpusfm(size, axis, value):
+    a = np.arange(15, dtype=np.float32).reshape(5, 3)
+    if axis == 1:
+        a = a.T.copy()
+    ref = np.asarray(jax_pad_axis(jnp.array(a), size, axis, value))
+    np.testing.assert_array_equal(pad_axis(torch.from_numpy(a), size, axis, value).numpy(), ref)
+    ref = np.asarray(jax_pad_to_multiple(jnp.array(a), 4, axis, value))
+    np.testing.assert_array_equal(pad_to_multiple(torch.from_numpy(a), 4, axis, value).numpy(), ref)
+    assert round_up(size, 4) == -(-size // 4) * 4
+    with pytest.raises(ValueError):
+        pad_axis(torch.from_numpy(a), 1, axis)
+
+
+def test_matches_gather_xy_and_count_match_tpusfm():
+    rng = np.random.default_rng(0)
+    xy1 = rng.uniform(0, 100, (6, 2)).astype(np.float32)
+    xy2 = rng.uniform(0, 100, (5, 2)).astype(np.float32)
+    idx1 = np.array([0, 5, 9, 2], np.int32)     # 9 is out of range: clamped
+    idx2 = np.array([4, -1, 1, 0], np.int32)
+    mask = np.array([True, True, False, True])
+    z1, z2 = np.zeros(6, np.float32), np.zeros(5, np.float32)
+    jm = JaxMatches(idx1=jnp.array(idx1), idx2=jnp.array(idx2), distance=jnp.zeros(4),
+                    mask=jnp.array(mask))
+    ref = jm.gather_xy(JaxKeypoints(jnp.array(xy1), z1, z1, z1, jnp.ones(6, bool)),
+                       JaxKeypoints(jnp.array(xy2), z2, z2, z2, jnp.ones(5, bool)))
+    tm = Matches(idx1=torch.from_numpy(idx1), idx2=torch.from_numpy(idx2),
+                 distance=torch.zeros(4), mask=torch.from_numpy(mask))
+    k1 = features_from_numpy(xy1, z1, z1, z1, np.ones(6, bool), np.zeros((6, 4))).kpts
+    k2 = features_from_numpy(xy2, z2, z2, z2, np.ones(5, bool), np.zeros((5, 4))).kpts
+    got = tm.gather_xy(k1, k2)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert int(tm.count) == int(jm.count) == 3
+    assert k1.capacity == 6 and int(k1.count) == 6
+
+
+def test_intrinsics_ideal_and_conversion():
+    a = CameraIntrinsics.ideal(500.0, 510.0, 250.0, 190.0)
+    b = intrinsics_from_numpy(a.K.numpy(), np.zeros(5))
+    assert torch.equal(a.K, b.K) and torch.equal(a.dist, b.dist)
+    assert a.K.dtype == torch.float32 and tuple(a.dist.shape) == (5,)
+
+
+def test_dataset_and_imread(tmp_path):
+    from tpusfm_torch.io import has_reference_data, imread_gray, source_image
+
+    assert isinstance(has_reference_data(), bool)
+    assert source_image("PikaBun1.jpg").endswith(os.path.join("SourceImages", "PikaBun1.jpg"))
+    if os.environ.get("TPUSFM_DATA"):  # both packages read the same variable
+        assert has_reference_data() == jax_has_reference_data()
+    PIL = pytest.importorskip("PIL.Image")
+    rgb = (np.random.default_rng(0).random((6, 7, 3)) * 255).astype(np.uint8)
+    p = tmp_path / "x.png"
+    PIL.fromarray(rgb).save(p)
+    g = imread_gray(str(p))
+    ref = (rgb.astype(np.float32) / 255.0) @ np.array([0.299, 0.587, 0.114], np.float32)
+    np.testing.assert_allclose(g, ref, rtol=1e-6)

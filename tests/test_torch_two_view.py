@@ -1,0 +1,133 @@
+"""Parity of the port's two-view slice (tpusfm_torch.sfm) with tpusfm on CPU:
+synthetic descriptors and tpusfm's own SIFT features through both
+two_view_sfm with the RANSAC samples injected, and the whole slice (SIFT
+included) on the rendered scene of tests/test_e2e.py."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from __graft_entry__ import entry
+from chip_smoke import render_small_pair as _render_views
+from tpusfm.config import MatchConfig, PipelineConfig, RansacConfig, SiftConfig
+from tpusfm.features.sift import sift_detect_and_compute as jax_sift
+from tpusfm.sfm import two_view_sfm as jax_two_view_sfm
+from tpusfm.types import CameraIntrinsics as JaxIntrinsics
+from tpusfm.types import Features as JaxFeatures
+from tpusfm.types import Keypoints as JaxKeypoints
+from tpusfm_torch.config import PipelineConfig as TPipelineConfig
+from tpusfm_torch.features.sift import sift_detect_and_compute
+from tpusfm_torch.sfm import two_view_batch, two_view_sfm
+from tpusfm_torch.sfm.two_view import match_features
+from tpusfm_torch.types import CameraIntrinsics, Features, Keypoints
+from tpusfm_torch.utils.convert import (config_from, features_from, intrinsics_from_numpy,
+                                        sample_table_from_numpy)
+
+torch.set_num_threads(2)
+
+_E2E_CFG = PipelineConfig(
+    sift=SiftConfig(max_features=256, upsample=False),
+    match=MatchConfig(max_matches=256),
+    ransac=RansacConfig(n_hypotheses=128, threshold_px=2.0),
+)
+
+
+def _jax_table(mask, cfg: RansacConfig):
+    from test_torch_geometry import jax_sample_table
+
+    return sample_table_from_numpy(jax_sample_table(np.asarray(mask), cfg))
+
+
+def _entry_features():
+    """The synthetic descriptors and pixel positions of __graft_entry__.entry()
+    as tpusfm Features, with its config and intrinsics."""
+    _, (desc1, desc2, xy1, xy2, K, dist) = entry()
+    n = desc1.shape[0]
+
+    def feat(xy, desc):
+        return JaxFeatures(kpts=JaxKeypoints(xy=xy, scale=jnp.ones(n), angle=jnp.zeros(n),
+                                             response=jnp.ones(n), mask=jnp.ones(n, bool)),
+                           desc=desc)
+
+    cfg = PipelineConfig(match=MatchConfig(max_matches=256), ransac=RansacConfig(n_hypotheses=128))
+    return feat(xy1, desc1), feat(xy2, desc2), JaxIntrinsics(K=K, dist=dist), cfg
+
+
+def _assert_same_result(rt, rj):
+    # the same match set (its order follows distances, where last-bit
+    # differences can swap near-equal neighbours)
+    def pairs(m):
+        k = np.asarray(m.mask)
+        return sorted(zip(np.asarray(m.idx1)[k].tolist(), np.asarray(m.idx2)[k].tolist()))
+
+    assert pairs(rt.matches) == pairs(rj.matches)
+    assert abs(int(rt.n_inliers) - int(rj.n_inliers)) <= 1
+    np.testing.assert_allclose(rt.R.numpy(), np.asarray(rj.R), atol=1e-4)
+    np.testing.assert_allclose(rt.t.numpy(), np.asarray(rj.t), atol=1e-4)
+
+
+@pytest.mark.parametrize("source", ["entry_descriptors", "tpusfm_sift"])
+def test_two_view_sfm_matches_tpusfm_with_injected_samples(source):
+    if source == "entry_descriptors":
+        f1, f2, intr, cfg = _entry_features()
+    else:
+        g1, g2 = _render_views()
+        cfg = _E2E_CFG
+        f1, f2 = (jax_sift(jnp.array(g), cfg.sift) for g in (g1, g2))
+        intr = JaxIntrinsics.ideal(160.0, 160.0, 80.0, 80.0)
+    rj = jax_two_view_sfm(f1, f2, intr, "bf", cfg=cfg)
+    rt = two_view_sfm(features_from(f1), features_from(f2),
+                      intrinsics_from_numpy(intr.K, intr.dist), "bf",
+                      cfg=config_from(TPipelineConfig, cfg),
+                      sample_idx=_jax_table(rj.matches.mask, cfg.ransac))
+    _assert_same_result(rt, rj)
+
+
+def test_whole_slice_on_rendered_pair_matches_tpusfm():
+    """SIFT -> match -> essential -> pose -> triangulation in each package.
+    The port passes test_e2e's own assertions and agrees with tpusfm's pose."""
+    g1, g2 = _render_views()
+    cfg = _E2E_CFG
+    rj = jax_two_view_sfm(jax_sift(jnp.array(g1), cfg.sift), jax_sift(jnp.array(g2), cfg.sift),
+                          JaxIntrinsics.ideal(160.0, 160.0, 80.0, 80.0), "bf",
+                          (160, 160), (160, 160), cfg)
+    tcfg = config_from(TPipelineConfig, cfg)
+    f1 = sift_detect_and_compute(torch.from_numpy(g1), tcfg.sift)
+    f2 = sift_detect_and_compute(torch.from_numpy(g2), tcfg.sift)
+    r = two_view_sfm(f1, f2, CameraIntrinsics.ideal(160.0, 160.0, 80.0, 80.0), "bf",
+                     (160, 160), (160, 160), tcfg)
+    # test_e2e.py::test_two_view_pipeline_recovers_translation's assertions
+    assert int(r.n_inliers) >= 20, int(r.n_inliers)
+    t, R = r.t.numpy(), r.R.numpy()
+    assert np.abs(R - np.eye(3)).max() < 0.05, R
+    assert abs(t[0]) > 0.98, t
+    X = r.points3d.numpy()[r.point_mask.numpy()]
+    assert 5.0 < np.median(X[:, 2]) < 20.0
+    # and agreement with tpusfm on the same pair
+    assert np.abs(R - np.asarray(rj.R)).max() < 0.01
+    assert float(np.dot(t, np.asarray(rj.t))) > 0.999
+
+
+def test_two_view_batch_equals_per_pair():
+    g1, g2 = _render_views()
+    tcfg = config_from(TPipelineConfig, _E2E_CFG)
+    intr = CameraIntrinsics.ideal(160.0, 160.0, 80.0, 80.0)
+    imgs = torch.from_numpy(np.stack([g1, g2, g2, g1]))
+    fb = sift_detect_and_compute(imgs, tcfg.sift)
+    rb = two_view_batch(fb.index(slice(0, None, 2)), fb.index(slice(1, None, 2)), intr, tcfg)
+    assert tuple(rb.R.shape) == (2, 3, 3) and tuple(rb.matches.idx1.shape) == (2, 256)
+    for i in range(2):
+        ri = two_view_sfm(fb.index(2 * i), fb.index(2 * i + 1), intr, "bf", cfg=tcfg)
+        torch.testing.assert_close(rb.R[i], ri.R)
+        torch.testing.assert_close(rb.t[i], ri.t)
+        assert int(rb.n_inliers[i]) == int(ri.n_inliers)
+        assert torch.equal(rb.matches.mask[i], ri.matches.mask)
+
+
+@pytest.mark.parametrize("algo", ["gms", "logos"])
+def test_unported_matchers_raise(algo):
+    f = Features(kpts=Keypoints(*(torch.zeros(4, 2) if i == 0 else torch.zeros(4)
+                                  for i in range(4)), torch.ones(4, dtype=torch.bool)),
+                 desc=torch.zeros(4, 8))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        match_features(f, f, algo)

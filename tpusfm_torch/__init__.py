@@ -1,0 +1,27 @@
+"""tpusfm_torch — the tpusfm Structure-from-Motion pipeline in PyTorch/CUDA.
+
+A port of ``tpusfm`` (JAX) for NVIDIA Hopper. It keeps tpusfm's subpackage
+layout, function names and fixed-capacity-plus-mask tensors, so results
+compare row for row against the JAX package, which stays the reference.
+It never imports jax.
+
+Package map:
+  io/        grayscale decode, dataset manifests
+  kernels/   the hand-written CUDA NN-search kernel + its plain torch version
+  features/  scale space, SIFT (fast-descriptor path)
+  match/     brute-force matching with the reference's prune rules
+  geometry/  undistortion, five-point RANSAC, recoverPose, triangulation
+  sfm/       two-view SfM over one pair or a batch of pairs
+  utils/     padding helpers, conversion of shared state from numpy
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Numerics policy (README, "Numerics policy"): f32 in means f32 math. On
+# Hopper the trap is TF32: cuDNN convolutions use it by default, and the
+# scale-space blurs feed DoG contrasts of ~1e-3, the size of TF32's
+# rounding error on O(1) pixel values.
+_torch.backends.cudnn.allow_tf32 = False
+_torch.backends.cuda.matmul.allow_tf32 = False

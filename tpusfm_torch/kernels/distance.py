@@ -1,0 +1,198 @@
+"""Descriptor nearest-neighbour search — the matching hot loop.
+
+For each query row: the index of the nearest unmasked db row and the best
+and second-best distances (squared L2, or Hamming on packed uint32 words).
+Masked db rows never win; a query whose db is all masked gets index -1 and
+distances 1e30. Ties go to the lowest db index.
+
+Three functions, one contract:
+  * ``nn_search_torch`` — the plain PyTorch version (port of tpusfm's
+    ``nn_search_xla``): blocked matmul + running top-2;
+  * ``nn_search_cuda`` — the hand-written CUDA kernel
+    (``csrc/nn_search.cu``), built with nvcc at first use;
+  * ``nn_search`` — dispatch on the tensors' device: CPU tensors take the
+    plain version, CUDA tensors take the kernel, anything else raises.
+
+All accept an optional leading batch axis: q (B, Nq, D), db (B, Ndb, D),
+db_mask (B, Ndb).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import subprocess
+import tempfile
+
+import torch
+
+BIG = 1e30
+
+# Number of times nn_search_cuda launched its kernel (one per call).
+launches = 0
+
+_SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "nn_search.cu"
+_BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "tpusfm_torch"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC")
+_VARIANTS = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def unpack_bits(x: torch.Tensor) -> torch.Tensor:
+    """Packed binary descriptors (..., W) uint32/int32 -> (..., 32*W) bf16
+    of 0/1 bits. Hamming distance between packed descriptors equals squared
+    L2 between their bit vectors, exactly (integers <= 256)."""
+    w = x.view(torch.int32) if x.dtype == torch.uint32 else x.to(torch.int32)
+    shifts = torch.arange(32, dtype=torch.int32, device=x.device)
+    bits = (w.unsqueeze(-1) >> shifts) & 1  # arithmetic shift: bit s is still bit 0
+    return bits.reshape(*x.shape[:-1], -1).to(torch.bfloat16)
+
+
+def _ones_mask(db):
+    return torch.ones(db.shape[:-1], dtype=torch.float32, device=db.device)
+
+
+def nn_search_torch(q, db, db_mask=None, metric: str = "l2", block: int = 1024):
+    """Plain PyTorch NN search: blocks of db, a matmul per block, and a
+    running (best, second, idx) merged with a strict < (lowest index wins).
+
+    Returns (idx int32, best f32, second f32), each shaped q.shape[:-1]."""
+    if db_mask is None:
+        db_mask = _ones_mask(db)
+    if metric == "hamming":
+        q, db = unpack_bits(q), unpack_bits(db)
+    elif metric != "l2":
+        raise ValueError(f"unknown metric {metric!r}")
+    qf = q.float()
+    dbf = db.float()
+    pen = (1.0 - db_mask.float()) * BIG
+    qn = (qf * qf).sum(-1)
+    dn = (dbf * dbf).sum(-1)
+    shape = q.shape[:-1]
+    best = torch.full(shape, BIG, dtype=torch.float32, device=q.device)
+    second = torch.full(shape, BIG, dtype=torch.float32, device=q.device)
+    idx = torch.full(shape, -1, dtype=torch.int32, device=q.device)
+    for off in range(0, db.shape[-2], block):
+        blk = slice(off, off + block)
+        cross = qf @ dbf[..., blk, :].transpose(-1, -2)
+        dist = torch.clamp(qn.unsqueeze(-1) + dn[..., blk].unsqueeze(-2) - 2.0 * cross, min=0.0)
+        dist = dist + pen[..., blk].unsqueeze(-2)
+        bidx = torch.argmin(dist, dim=-1, keepdim=True)  # first occurrence
+        bmin = torch.gather(dist, -1, bidx)
+        bmin2 = dist.scatter(-1, bidx, BIG).amin(-1)
+        bmin, bidx = bmin.squeeze(-1), bidx.squeeze(-1).to(torch.int32) + off
+        take = bmin < best
+        loser = torch.where(take, best, bmin)
+        second = torch.minimum(second, torch.minimum(loser, bmin2))
+        best = torch.where(take, bmin, best)
+        idx = torch.where(take, bidx, idx)
+    return idx, best, second
+
+
+def _build() -> pathlib.Path:
+    """Compile csrc/nn_search.cu with nvcc into build/tpusfm_torch/, keyed by
+    the hash of the source and flags; reuse the library when it exists."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    src = _SRC.read_bytes()
+    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = _BUILD_DIR / f"nn_search_{key}.so"
+    if out.exists():
+        return out
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    try:
+        subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, str(_SRC)], check=True,
+                       capture_output=True, text=True)
+        os.replace(tmp, out)
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"nvcc failed building {_SRC}:\n{e.stderr}") from e
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def load_kernel():
+    """Build (at first use) and load the CUDA library; returns its handle."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(_build()))
+        fn = lib.tpusfm_nn_search
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def nn_search_cuda(q, db, db_mask=None, metric: str = "l2"):
+    """NN search through the hand-written CUDA kernel; one launch covers the
+    whole leading batch axis. Same contract as nn_search_torch."""
+    global launches
+    if metric == "l2":
+        if q.dtype not in _VARIANTS:
+            raise TypeError(f"l2 takes float32 or bfloat16, got {q.dtype}")
+        variant = _VARIANTS[q.dtype]
+    elif metric == "hamming":
+        if q.dtype not in (torch.uint32, torch.int32):
+            raise TypeError(f"hamming takes packed uint32/int32 words, got {q.dtype}")
+        variant = 2
+    else:
+        raise ValueError(f"unknown metric {metric!r}")
+    if db_mask is None:
+        db_mask = _ones_mask(db)
+    for name, t in (("q", q), ("db", db), ("db_mask", db_mask)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    for name, t in (("q", q), ("db", db)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if db.dtype != q.dtype or db.device != q.device or db_mask.device != q.device:
+        raise ValueError("q and db must share dtype and device with db_mask")
+    batched = q.dim() == 3
+    if q.dim() not in (2, 3) or db.dim() != q.dim() or db_mask.dim() != q.dim() - 1:
+        raise ValueError(f"bad ranks: q {tuple(q.shape)} db {tuple(db.shape)} "
+                         f"mask {tuple(db_mask.shape)}")
+    if not batched:
+        q, db, db_mask = q[None], db[None], db_mask[None]
+    B, nq, d = q.shape
+    ndb = db.shape[1]
+    if db.shape[0] != B or db.shape[2] != d or tuple(db_mask.shape) != (B, ndb) or d == 0:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} db {tuple(db.shape)} "
+                         f"mask {tuple(db_mask.shape)}")
+    mask = db_mask.to(torch.float32).contiguous()
+    idx = torch.empty((B, nq), dtype=torch.int32, device=q.device)
+    best = torch.empty((B, nq), dtype=torch.float32, device=q.device)
+    second = torch.empty((B, nq), dtype=torch.float32, device=q.device)
+    if B * nq > 0:
+        qn = torch.empty((B, nq), dtype=torch.float32, device=q.device)
+        pen = torch.empty((B, max(ndb, 1)), dtype=torch.float32, device=q.device)
+        lib = load_kernel()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tpusfm_nn_search(
+                q.data_ptr(), db.data_ptr(), mask.data_ptr(), qn.data_ptr(),
+                pen.data_ptr(), idx.data_ptr(), best.data_ptr(), second.data_ptr(),
+                B, nq, ndb, d, variant, stream)
+        if err != 0:
+            raise RuntimeError(f"nn_search kernel launch failed: cudaError {err}")
+        launches += 1
+    if not batched:
+        idx, best, second = idx[0], best[0], second[0]
+    return idx, best, second
+
+
+def nn_search(q, db, db_mask=None, metric: str = "l2"):
+    """Dispatching NN search: the plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors (it launches or raises; there is no fallback)."""
+    if q.device.type == "cpu":
+        return nn_search_torch(q, db, db_mask, metric)
+    if q.device.type == "cuda":
+        return nn_search_cuda(q, db, db_mask, metric)
+    raise ValueError(f"nn_search has no path for device {q.device}")

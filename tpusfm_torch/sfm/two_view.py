@@ -1,0 +1,99 @@
+"""Two-view Structure-from-Motion — the reference pipeline's spine.
+
+The equivalent of structureFromMotion (SfM-GMS/SfMUtil.cpp:4-83): match
+(SfMUtil.cpp:12-22) -> coordinate gather (:26-35) -> essential RANSAC (:39)
+-> recoverPose (:45) -> canonical P1=[I|0], P2=[R|t] (:53-59) -> inlier
+filter (:69-74) -> undistort to normalized coords (:78-79) -> linear
+triangulation (:82), on fixed-capacity tensors with masks.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from tpusfm_torch.config import PipelineConfig
+from tpusfm_torch.geometry.epipolar import find_essential_ransac
+from tpusfm_torch.geometry.pose import recover_pose
+from tpusfm_torch.geometry.triangulate import triangulate_pair
+from tpusfm_torch.geometry.undistort import undistort_points
+from tpusfm_torch.match.bf import bf_match
+from tpusfm_torch.types import CameraIntrinsics, Features, Matches
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoViewResult:
+    """Pose, sparse points, and per-stage metrics for one image pair (or a
+    batch of pairs, every field with a leading pair axis)."""
+
+    R: torch.Tensor
+    t: torch.Tensor
+    E: torch.Tensor
+    points3d: torch.Tensor      # (M, 3), masked
+    point_mask: torch.Tensor    # (M,)
+    matches: Matches
+    n_matches: torch.Tensor
+    n_inliers: torch.Tensor
+    n_points: torch.Tensor
+
+
+def match_features(feat1: Features, feat2: Features, algo: str,
+                   size1: tuple[int, int] = (0, 0), size2: tuple[int, int] = (0, 0),
+                   cfg: PipelineConfig = PipelineConfig()) -> Matches:
+    """Algorithm dispatch mirroring SfMUtil.cpp:12-22. Only "bf" is ported;
+    sizes are (width, height) and are used by the verifiers still to come."""
+    if algo == "bf":
+        return bf_match(feat1.desc, feat2.desc, feat1.kpts.mask, feat2.kpts.mask, cfg.match)
+    if algo == "gms":
+        raise NotImplementedError("GMS matching is not ported yet (ROADMAP, Queue 1, item 7)")
+    if algo == "logos":
+        raise NotImplementedError("LOGOS matching is not ported yet (ROADMAP, Queue 1, item 8)")
+    raise ValueError(f"unknown algo {algo!r}")
+
+
+def _geometry_chain(matches: Matches, feat1: Features, feat2: Features,
+                    intr: CameraIntrinsics, cfg: PipelineConfig,
+                    sample_idx=None) -> TwoViewResult:
+    p1, p2 = matches.gather_xy(feat1.kpts, feat2.kpts)
+    x1n = undistort_points(p1, intr.K, intr.dist)
+    x2n = undistort_points(p2, intr.K, intr.dist)
+    focal = (intr.K[0, 0] + intr.K[1, 1]) * 0.5
+
+    E, inl, n_inl = find_essential_ransac(x1n, x2n, matches.mask, focal, cfg.ransac,
+                                          sample_idx=sample_idx)
+    R, t, cheir = recover_pose(E, x1n, x2n, inl)
+    X = torch.where(cheir[:, None], triangulate_pair(R, t, x1n, x2n), 0.0)
+    return TwoViewResult(
+        R=R, t=t, E=E, points3d=X, point_mask=cheir, matches=matches,
+        n_matches=matches.count, n_inliers=n_inl,
+        n_points=cheir.to(torch.int32).sum(),
+    )
+
+
+def two_view_sfm(feat1: Features, feat2: Features, intr: CameraIntrinsics,
+                 algo: str = "bf", size1: tuple[int, int] = (0, 0),
+                 size2: tuple[int, int] = (0, 0), cfg: PipelineConfig = PipelineConfig(),
+                 sample_idx=None) -> TwoViewResult:
+    """Full two-view SfM from extracted features. ``sample_idx`` optionally
+    fixes the (H, 5) RANSAC sample table (see find_essential_ransac)."""
+    matches = match_features(feat1, feat2, algo, size1, size2, cfg)
+    return _geometry_chain(matches, feat1, feat2, intr, cfg, sample_idx)
+
+
+def _pair(m: Matches, i: int) -> Matches:
+    return Matches(idx1=m.idx1[i], idx2=m.idx2[i], distance=m.distance[i], mask=m.mask[i])
+
+
+def two_view_batch(feats1: Features, feats2: Features, intr: CameraIntrinsics,
+                   cfg: PipelineConfig = PipelineConfig()) -> TwoViewResult:
+    """BF match + geometry for a batch of pairs.
+
+    feats1/feats2 carry a leading pair axis (from batched
+    sift_detect_and_compute). Matching covers the whole batch in one NN
+    search per direction; the geometry chain runs pair by pair."""
+    m = bf_match(feats1.desc, feats2.desc, feats1.kpts.mask, feats2.kpts.mask, cfg.match)
+    results = [_geometry_chain(_pair(m, i), feats1.index(i), feats2.index(i), intr, cfg)
+               for i in range(feats1.desc.shape[0])]
+    fields = {f.name: torch.stack([getattr(r, f.name) for r in results])
+              for f in dataclasses.fields(TwoViewResult) if f.name != "matches"}
+    return TwoViewResult(matches=m, **fields)
