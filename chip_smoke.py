@@ -7,8 +7,11 @@ Phases (any failure raises and the script exits non-zero):
   2. builds the NN-search kernel from tpusfm_torch/kernels/csrc/nn_search.cu;
   3. holds the kernel against its plain PyTorch version on the card: f32 L2
      at B=2 x 10000 x 10000 x 128 with masked rows, an all-masked db,
-     duplicated db rows, bf16 L2, Hamming on (2048, 8) uint32 words; times
-     both with CUDA events;
+     duplicated db rows, bf16 L2, Hamming on (2048, 8) uint32 words, the L2
+     kernel's edges (EDGE_SHAPES; exact ties across db tiles and slices,
+     all-masked, masked rows in the ragged last tile) in f32 and bf16, and
+     the dense-mode shape (1 x 262144 x 65536 x 128); times the kernel, the
+     plain version and torch.bmm (the yardstick, full f32) with CUDA events;
   4. checks the port on the card against the port on the CPU on the small
      rendered pair of tests/test_e2e.py;
   5. drives the main path -- sift_detect_and_compute at 10k features on a
@@ -31,6 +34,9 @@ MAX_MATCHES = 500
 N_PAIRS = 2
 STEPS = 3          # main-path steps after one warm-up step
 RTOL, ATOL = 1e-5, 1e-4
+DENSE_NQ, DENSE_NDB = 262144, 65536
+# NVIDIA H100 SXM peaks (data sheet, dense): TF32 and bf16 tensor cores, HBM3.
+TF32_PEAK, BF16_PEAK, HBM_BYTES_PER_S = 495e12, 989e12, 3.35e12
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -54,55 +60,172 @@ def sift_like(gen, *shape):
     return (x / x.norm(dim=-1, keepdim=True)).contiguous()
 
 
+# (B, Nq, Ndb, D) at the L2 kernel's edges: one query or db row, one either
+# side of a 64-row warpgroup and a 128-row tile, D off the 128-byte chunk,
+# several db slices.
+EDGE_SHAPES = [(1, 1, 1, 8), (3, 63, 127, 37), (1, 65, 129, 256), (3, 10000, 3000, 128)]
+EDGE_KINDS = ["ties", "all_masked", "ragged_mask"]
+
+
+def edge_case(kind, B, nq, ndb, d, dtype, seed=0):
+    """Inputs on the card for one case of the L2 kernel: unit rows (so
+    distances lie in [0, 4] and a gap of 1e-4 is clear) and a random 10%
+    mask, then by kind:
+      * "ties": copies of one row either side of every 128-row tile boundary
+        (db slices begin and end there), those below a middle tile's last row
+        masked, and the first queries equal to the row: that last row must
+        win over its twin in the next tile (and slice);
+      * "all_masked": every db row masked: idx -1, distances 1e30;
+      * "ragged_mask": every other row of the last (ragged) db tile masked
+        and the first queries equal to those rows: they must not win.
+    Returns (q, db, mask, expect): expect maps query positions to the index
+    they must get, or is None."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def unit(*s):
+        x = torch.randn(*s, device="cuda", generator=gen)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    q, db = unit(B, nq, d), unit(B, ndb, d)
+    mask = (torch.rand(B, ndb, device="cuda", generator=gen) > 0.1).float()
+    expect = None
+    nfirst = min(nq, 4)
+    if kind == "ties":
+        pos = sorted({p for k in range(1, ndb // 128 + 1) for p in (128 * k - 1, 128 * k)
+                      if p < ndb}) or sorted({0, ndb - 1})
+        low = pos[len(pos) // 4 * 2]          # the last row of a tile; its twin opens the next
+        db[:, pos] = db[:, pos[:1]]
+        mask = torch.ones_like(mask)
+        mask[:, [p for p in pos if p < low]] = 0.0
+        q[:, :nfirst] = db[:, pos[0]].unsqueeze(1)
+        expect = {i: low for i in range(nfirst)}
+    elif kind == "all_masked":
+        mask = torch.zeros_like(mask)
+        expect = {i: -1 for i in range(nfirst)} | {nq - 1: -1}
+    elif kind == "ragged_mask":
+        last = torch.arange(ndb - 1 - (ndb - 1) % 128, ndb, 2, device="cuda")
+        mask[:, last] = 0.0
+        q[:, :nfirst] = db[:, last[torch.arange(nfirst, device="cuda") % len(last)]]
+    elif kind != "random":
+        raise ValueError(kind)
+    return q.to(dtype).contiguous(), db.to(dtype).contiguous(), mask, expect
+
+
+def compare(distance, name, args, metric="l2", expect=None):
+    """The kernel against the plain version on the same CUDA tensors: Hamming
+    exactly; L2 best and second within RTOL/ATOL and idx equal where the
+    plain version's gap is clear, plus any index `expect` demands. Checks the
+    kernel launched once. Returns (idx, max abs error)."""
+    before = distance.launches
+    ki, kb, ks = distance.nn_search_cuda(*args, metric=metric)
+    torch.cuda.synchronize()
+    if distance.launches != before + 1:
+        raise AssertionError(f"{name}: nn_search_cuda must count one launch per call")
+    pi, pb, ps = distance.nn_search_torch(*args, metric=metric)
+    err = max(float((kb - pb).abs().max()), float((ks - ps).abs().max())) if kb.numel() else 0.0
+    if metric == "hamming":
+        ok = torch.equal(ki, pi) and torch.equal(kb, pb) and torch.equal(ks, ps)
+    else:
+        clear = (ps - pb) > ATOL + RTOL * pb.abs()
+        ok = (torch.allclose(kb, pb, rtol=RTOL, atol=ATOL)
+              and torch.allclose(ks, ps, rtol=RTOL, atol=ATOL)
+              and torch.equal(ki[clear], pi[clear]))
+        valid = ki >= 0
+        gathered = torch.gather(args[2], -1, ki.clamp(min=0).long())
+        ok = ok and bool((gathered[valid] != 0).all())      # never a masked row
+    if expect:
+        pos, want = list(expect), torch.tensor(list(expect.values()), device="cuda")
+        ok = ok and bool((ki[..., pos] == want).all())
+        none = [i for i, w in expect.items() if w == -1]
+        ok = ok and bool((kb[..., none] == 1e30).all() and (ks[..., none] == 1e30).all())
+    print(f"kernel check {name}: max_abs_err={err} ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError(f"nn_search kernel disagrees with nn_search_torch: {name}")
+    return ki, err
+
+
+def time_kernel(distance, name, args, reps, plain_reps=None, library=None):
+    """CUDA-event times of the kernel, the plain version and the library
+    yardstick (None where not given) on the same inputs; also printed."""
+    ms = cuda_ms(lambda: distance.nn_search_cuda(*args), reps)
+    plain = cuda_ms(lambda: distance.nn_search_torch(*args), plain_reps) if plain_reps else None
+    lib = cuda_ms(library, reps) if library else None
+    print(f"nn_search {name}: kernel {ms:.4f} ms, plain {plain} ms, library {lib} ms", flush=True)
+    return ms, plain, lib
+
+
+def bound_ms(B, nq, ndb, d, dtype) -> float:
+    """Least time on an H100 for the L2 kernel's work on these inputs: the
+    products as 3xTF32 (f32) or one bf16 pass on the tensor cores, against
+    reading q, db and the mask once and writing the three outputs."""
+    flops = 2.0 * B * nq * ndb * d
+    ops_ms = (3 * flops / TF32_PEAK if dtype == torch.float32 else flops / BF16_PEAK) * 1e3
+    esize = 4 if dtype == torch.float32 else 2
+    nbytes = B * (nq + ndb) * d * esize + B * ndb * 4 + B * nq * 12
+    return max(ops_ms, nbytes / HBM_BYTES_PER_S * 1e3)
+
+
 def check_kernel(distance) -> dict:
-    """Phase 3: kernel == plain version on the same CUDA tensors."""
+    """Phase 3: kernel == plain version on the same CUDA tensors, at the
+    main path's shape, the kernel's edges and the dense-mode shape; times."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     q = sift_like(gen, 2, 10000, 128)
     db = sift_like(gen, 2, 10000, 128)
     mask = (torch.rand(2, 10000, device="cuda", generator=gen) > 0.1).float()
 
-    def compare(name, args, metric="l2"):
-        ki, kb, ks = distance.nn_search_cuda(*args, metric=metric)
-        pi, pb, ps = distance.nn_search_torch(*args, metric=metric)
-        torch.cuda.synchronize()
-        err = max(float((kb - pb).abs().max()), float((ks - ps).abs().max()))
-        if metric == "hamming":
-            ok = torch.equal(ki, pi) and torch.equal(kb, pb) and torch.equal(ks, ps)
-        else:
-            clear = (ps - pb) > ATOL + RTOL * pb.abs()
-            ok = (torch.allclose(kb, pb, rtol=RTOL, atol=ATOL)
-                  and torch.allclose(ks, ps, rtol=RTOL, atol=ATOL)
-                  and torch.equal(ki[clear], pi[clear]))
-        print(f"kernel check {name}: max_abs_err={err} ok={ok}", flush=True)
-        if not ok:
-            raise AssertionError(f"nn_search kernel disagrees with nn_search_torch: {name}")
-        return ki, err
-
-    _, err_f32 = compare("f32 B=2 10000x10000x128 masked", (q, db, mask))
-    ki, _ = compare("all-masked", (q, db, torch.zeros_like(mask)))
-    if not bool((ki == -1).all()):
-        raise AssertionError("all-masked db must give idx -1")
+    _, err_f32 = compare(distance, "f32 B=2 10000x10000x128 masked", (q, db, mask))
+    compare(distance, "all-masked", (q, db, torch.zeros_like(mask)), expect={0: -1, 9999: -1})
     dup = db.clone()
     dup[:, 5000] = dup[:, 17]
     dup[:, 9999] = dup[:, 17]
     dq = dup[:, [17, 5000, 9999]].contiguous()
-    ki, _ = compare("duplicate rows", (dq, dup, torch.ones_like(mask)))
-    if not bool((ki == 17).all()):
-        raise AssertionError(f"duplicate rows must resolve to the lowest index: {ki.tolist()}")
+    compare(distance, "duplicate rows", (dq, dup, torch.ones_like(mask)),
+            expect={0: 17, 1: 17, 2: 17})
     qb, dbb = q.bfloat16(), db.bfloat16()
-    compare("bf16 B=2 10000x10000x128 masked", (qb, dbb, mask))
+    compare(distance, "bf16 B=2 10000x10000x128 masked", (qb, dbb, mask))
     words = lambda: torch.randint(-2**31, 2**31 - 1, (2048, 8), device="cuda", generator=gen,
                                   dtype=torch.int32).view(torch.uint32)
-    compare("hamming 2048x8 uint32", (words(), words(), torch.ones(2048, device="cuda")),
+    compare(distance, "hamming 2048x8 uint32", (words(), words(), torch.ones(2048, device="cuda")),
             metric="hamming")
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in EDGE_SHAPES:
+            compare(distance, f"{dtype} B,Nq,Ndb,D={shape} random",
+                    edge_case("random", *shape, dtype)[:3])
+        for kind in EDGE_KINDS:
+            shape = (3, 65, 3000, 128)
+            q_, db_, m_, expect = edge_case(kind, *shape, dtype)
+            compare(distance, f"{dtype} B,Nq,Ndb,D={shape} {kind} "
+                    f"(db slices {distance.db_splits(*shape, dtype)})", (q_, db_, m_),
+                    expect=expect)
 
-    times = {}
-    for name, args in (("f32", (q, db, mask)), ("bf16", (qb, dbb, mask))):
-        times[name] = (cuda_ms(lambda: distance.nn_search_cuda(*args), 10),
-                       cuda_ms(lambda: distance.nn_search_torch(*args), 10))
-        print(f"nn_search {name} B=2 10000x10000x128: kernel {times[name][0]:.4f} ms, "
-              f"plain {times[name][1]:.4f} ms", flush=True)
-    return {"max_abs_err": err_f32, "ms": times["f32"][0], "plain_ms": times["f32"][1]}
+    torch.backends.cuda.matmul.allow_tf32 = False   # the yardstick in full f32
+    dbt = db.transpose(1, 2)
+    f32 = time_kernel(distance, "f32 B=2 10000x10000x128", (q, db, mask), 20, 10,
+                      lambda: torch.bmm(q, dbt))
+    bf16 = time_kernel(distance, "bf16 B=2 10000x10000x128", (qb, dbb, mask), 20, 10,
+                       lambda: torch.bmm(qb, dbb.transpose(1, 2)))
+
+    # Dense mode: one image's 262,144 queries against a large db, as the
+    # disparity grid will drive the kernel.
+    dense = {}
+    shape = (1, DENSE_NQ, DENSE_NDB, 128)
+    dq_, ddb_, dm_, _ = edge_case("random", *shape, torch.float32, seed=1)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (dq_.to(dtype), ddb_.to(dtype), dm_)
+        compare(distance, f"dense {dtype} {shape}", args)
+        dense[dtype] = time_kernel(distance, f"dense {dtype} {shape} "
+                                   f"(bound {bound_ms(*shape, dtype):.3f} ms)", args, 3)[0]
+    return {"max_abs_err": err_f32, "ms": f32[0], "plain_ms": f32[1],
+            "bound_ms": bound_ms(2, 10000, 10000, 128, torch.float32),
+            "bound_by": "operations", "library_ms": f32[2],
+            "bf16_ms": bf16[0], "bf16_plain_ms": bf16[1],
+            "bf16_bound_ms": bound_ms(2, 10000, 10000, 128, torch.bfloat16),
+            "bf16_library_ms": bf16[2],
+            "db_splits": distance.db_splits(2, 10000, 10000, 128),
+            "dense_shape": list(shape), "dense_ms": dense[torch.float32],
+            "dense_bound_ms": bound_ms(*shape, torch.float32),
+            "dense_bf16_ms": dense[torch.bfloat16],
+            "dense_bf16_bound_ms": bound_ms(*shape, torch.bfloat16)}
 
 
 def render_small_pair():
@@ -189,6 +312,7 @@ def main():
     t0 = time.perf_counter()
     distance.load_kernel()
     print(f"built nn_search kernel in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(distance.build_log.strip(), flush=True)
 
     record = check_kernel(distance)
 

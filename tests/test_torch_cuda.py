@@ -1,6 +1,8 @@
 """The port on the card (marked ``cuda``; skipped without a CUDA device): the
-hand-written NN-search kernel against its plain PyTorch version, and the
-two-view slice on the card against the same slice on the CPU.
+hand-written NN-search kernel against its plain PyTorch version (at the main
+path's widths and at the kernel's edges: row counts either side of the
+64-row warpgroup and 128-row tile, D off the 128-byte chunk, ties across db
+slices, masks), and the two-view slice on the card against the CPU.
 
 This file imports no jax, so it runs where jax is absent:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -64,6 +66,37 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case):
         assert bool((ki[:, :5] == 3).all())
     if case == "all_masked":
         assert bool((ki == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 37, 128, 256])
+@pytest.mark.parametrize("ndb", [1, 127, 129, 3000])
+@pytest.mark.parametrize("nq", [1, 63, 65, 10000])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_l2_kernel_at_its_edges(cuda_device, dtype, B, nq, ndb, d):
+    """The wgmma kernel == nn_search_torch on unit rows with a random mask
+    (best/second within rtol 1e-5, atol 1e-4; idx equal where the gap is
+    clear; never a masked row), one launch per call."""
+    from chip_smoke import compare, edge_case
+
+    compare(td, f"{dtype} {(B, nq, ndb, d)}", edge_case("random", B, nq, ndb, d, dtype)[:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 65, 3000, 128), (1, 63, 129, 37), (1, 10000, 3000, 256)])
+@pytest.mark.parametrize("kind", ["ties", "all_masked", "ragged_mask"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_l2_kernel_ties_and_masks(cuda_device, dtype, kind, shape):
+    """Exact ties either side of db tile and slice boundaries go to the lowest
+    valid index; an all-masked db gives -1 and 1e30; masked rows of the
+    ragged last tile never win."""
+    from chip_smoke import compare, edge_case
+
+    if shape[0] == 3:   # one query tile a pair: every db tile is its own slice
+        assert td.db_splits(*shape, dtype) == 24
+    q, db, mask, expect = edge_case(kind, *shape, dtype)
+    compare(td, f"{dtype} {shape} {kind}", (q, db, mask), expect=expect)
 
 
 @pytest.mark.cuda

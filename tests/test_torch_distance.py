@@ -140,3 +140,60 @@ def test_nn_search_dispatch_stays_on_cpu_without_launch():
     _close(got, _torch(q, db, mask))
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         td.nn_search_cuda(torch.from_numpy(q), torch.from_numpy(db))
+
+
+def test_split_tf32_rounds_to_nearest_and_keeps_22_bits():
+    """hi = rna(x) to TF32 (low 13 mantissa bits zero), lo = rna(x - hi):
+    |x - hi - lo| <= 2^-21 |x|; ties round away from zero, as cvt.rna."""
+    rng = np.random.default_rng(9)
+    x = np.concatenate([rng.normal(size=4096), rng.uniform(-1e3, 1e3, 4096),
+                        rng.choice([-1.0, 1.0], 4096) * 10.0 ** rng.uniform(-30, 30, 4096)])
+    x = x.astype(np.float32)
+    hi, lo = td.split_tf32(torch.from_numpy(x))
+    for part in (hi, lo):
+        assert bool(((part.view(torch.int32) & 0x1FFF) == 0).all())
+    x64, hi64, lo64 = x.astype(np.float64), hi.double().numpy(), lo.double().numpy()
+    assert (np.abs(x64 - hi64) <= 2.0 ** -11 * np.abs(x64)).all()
+    assert (np.abs(x64 - hi64 - lo64) <= 2.0 ** -21 * np.abs(x64)).all()
+    halfway = torch.tensor([0x3F801000, -0x407FF000, 0x3F800FFF], dtype=torch.int32)
+    got = td.split_tf32(halfway.view(torch.float32))[0].view(torch.int32)
+    assert got.tolist() == [0x3F802000, -0x407FE000, 0x3F800000]
+
+
+def _sift_rows(rng, *shape):
+    x = np.abs(rng.normal(size=shape)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    x = np.minimum(x, 0.2)
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["sift_2x2000x2000x128", "normal_f32_case"])
+def test_3xtf32_distances_match_float64(case):
+    """The CUDA kernel's f32 scheme, here in f32 on the CPU: hi.hi^T +
+    hi.lo^T + lo.hi^T (small terms first) in the kernel's epilogue form gives
+    best and second within rtol 1e-5, atol 1e-4 of float64 distances, and
+    the same idx wherever the float64 gap is clear."""
+    if case.startswith("sift"):
+        rng = np.random.default_rng(10)
+        q, db = _sift_rows(rng, 2, 2000, 128), _sift_rows(rng, 2, 2000, 128)
+        mask = (rng.random((2, 2000)) > 0.1).astype(np.float32)
+    else:
+        q, db, mask = (a[None] for a in _f32_case())
+    (qh, ql), (dh, dl) = td.split_tf32(torch.from_numpy(q)), td.split_tf32(torch.from_numpy(db))
+    t = lambda a: a.transpose(-1, -2)
+    cross = (qh @ t(dl) + ql @ t(dh)) + qh @ t(dh)
+    qn = (torch.from_numpy(q) ** 2).sum(-1)
+    pen = torch.where(torch.from_numpy(mask) != 0, (torch.from_numpy(db) ** 2).sum(-1), np.inf)
+    dist = torch.clamp(qn[..., None] + pen[..., None, :] - 2.0 * cross, min=0.0)
+    two = torch.topk(dist, 2, dim=-1, largest=False)
+    idx, best, second = torch.argmin(dist, -1).numpy(), two.values[..., 0], two.values[..., 1]
+
+    q64, db64 = q.astype(np.float64), db.astype(np.float64)
+    d64 = ((q64 ** 2).sum(-1)[..., None] + (db64 ** 2).sum(-1)[..., None, :]
+           - 2.0 * q64 @ np.swapaxes(db64, -1, -2))
+    d64 = np.where(mask[..., None, :] != 0, d64, np.inf)
+    ref = np.sort(d64, -1)[..., :2]
+    np.testing.assert_allclose(best.numpy(), ref[..., 0], rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(second.numpy(), ref[..., 1], rtol=1e-5, atol=1e-4)
+    clear = ref[..., 1] - ref[..., 0] > 1e-4
+    np.testing.assert_array_equal(idx[clear], d64.argmin(-1)[clear])

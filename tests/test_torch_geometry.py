@@ -173,7 +173,7 @@ def test_find_essential_ransac_with_injected_samples(noise, seed):
     cfg = RansacConfig(n_hypotheses=64, threshold_px=1.5)
     Ej, inlj, nj = jep.find_essential_ransac(jnp.array(x1), jnp.array(x2),
                                              jnp.array(mask), 800.0, cfg)
-    table = sample_table_from_numpy(jax_sample_table(mask, cfg))
+    table = sample_table_from_numpy(jax_sample_table(mask, cfg), device="cpu")
     Et, inlt, nt = tep.find_essential_ransac(_t(x1), _t(x2), _t(mask), 800.0,
                                              config_from(TRansacConfig, cfg), sample_idx=table)
     np.testing.assert_array_equal(inlt.numpy(), np.asarray(inlj))

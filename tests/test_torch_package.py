@@ -89,8 +89,10 @@ def test_matches_gather_xy_and_count_match_tpusfm():
                        JaxKeypoints(jnp.array(xy2), z2, z2, z2, jnp.ones(5, bool)))
     tm = Matches(idx1=torch.from_numpy(idx1), idx2=torch.from_numpy(idx2),
                  distance=torch.zeros(4), mask=torch.from_numpy(mask))
-    k1 = features_from_numpy(xy1, z1, z1, z1, np.ones(6, bool), np.zeros((6, 4))).kpts
-    k2 = features_from_numpy(xy2, z2, z2, z2, np.ones(5, bool), np.zeros((5, 4))).kpts
+    k1 = features_from_numpy(xy1, z1, z1, z1, np.ones(6, bool), np.zeros((6, 4)),
+                            device="cpu").kpts
+    k2 = features_from_numpy(xy2, z2, z2, z2, np.ones(5, bool), np.zeros((5, 4)),
+                            device="cpu").kpts
     got = tm.gather_xy(k1, k2)
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
@@ -99,10 +101,31 @@ def test_matches_gather_xy_and_count_match_tpusfm():
 
 
 def test_intrinsics_ideal_and_conversion():
-    a = CameraIntrinsics.ideal(500.0, 510.0, 250.0, 190.0)
-    b = intrinsics_from_numpy(a.K.numpy(), np.zeros(5))
+    a = CameraIntrinsics.ideal(500.0, 510.0, 250.0, 190.0, device="cpu")
+    b = intrinsics_from_numpy(a.K.numpy(), np.zeros(5), device="cpu")
     assert torch.equal(a.K, b.K) and torch.equal(a.dist, b.dist)
     assert a.K.dtype == torch.float32 and tuple(a.dist.shape) == (5,)
+
+
+@pytest.mark.parametrize("entry", ["ideal", "intrinsics", "features", "sample_table"])
+def test_entry_points_default_to_the_card(entry):
+    """Without ``device=``, intrinsics and converted state go to the card;
+    where there is no CUDA device that raises, never a silent CPU tensor."""
+    from tpusfm_torch.utils.convert import sample_table_from_numpy
+
+    make = {
+        "ideal": lambda: CameraIntrinsics.ideal(1.0, 1.0, 0.0, 0.0).K,
+        "intrinsics": lambda: intrinsics_from_numpy(np.eye(3), np.zeros(5)).K,
+        "features": lambda: features_from_numpy(np.zeros((2, 2)), np.zeros(2), np.zeros(2),
+                                                np.zeros(2), np.ones(2, bool),
+                                                np.zeros((2, 4))).desc,
+        "sample_table": lambda: sample_table_from_numpy(np.zeros((4, 5), np.int64)),
+    }[entry]
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            make()
 
 
 def test_dataset_and_imread(tmp_path):

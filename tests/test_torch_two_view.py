@@ -35,7 +35,7 @@ _E2E_CFG = PipelineConfig(
 def _jax_table(mask, cfg: RansacConfig):
     from test_torch_geometry import jax_sample_table
 
-    return sample_table_from_numpy(jax_sample_table(np.asarray(mask), cfg))
+    return sample_table_from_numpy(jax_sample_table(np.asarray(mask), cfg), device="cpu")
 
 
 def _entry_features():
@@ -76,8 +76,8 @@ def test_two_view_sfm_matches_tpusfm_with_injected_samples(source):
         f1, f2 = (jax_sift(jnp.array(g), cfg.sift) for g in (g1, g2))
         intr = JaxIntrinsics.ideal(160.0, 160.0, 80.0, 80.0)
     rj = jax_two_view_sfm(f1, f2, intr, "bf", cfg=cfg)
-    rt = two_view_sfm(features_from(f1), features_from(f2),
-                      intrinsics_from_numpy(intr.K, intr.dist), "bf",
+    rt = two_view_sfm(features_from(f1, device="cpu"), features_from(f2, device="cpu"),
+                      intrinsics_from_numpy(intr.K, intr.dist, device="cpu"), "bf",
                       cfg=config_from(TPipelineConfig, cfg),
                       sample_idx=_jax_table(rj.matches.mask, cfg.ransac))
     _assert_same_result(rt, rj)
@@ -94,7 +94,7 @@ def test_whole_slice_on_rendered_pair_matches_tpusfm():
     tcfg = config_from(TPipelineConfig, cfg)
     f1 = sift_detect_and_compute(torch.from_numpy(g1), tcfg.sift)
     f2 = sift_detect_and_compute(torch.from_numpy(g2), tcfg.sift)
-    r = two_view_sfm(f1, f2, CameraIntrinsics.ideal(160.0, 160.0, 80.0, 80.0), "bf",
+    r = two_view_sfm(f1, f2, CameraIntrinsics.ideal(160.0, 160.0, 80.0, 80.0, device="cpu"), "bf",
                      (160, 160), (160, 160), tcfg)
     # test_e2e.py::test_two_view_pipeline_recovers_translation's assertions
     assert int(r.n_inliers) >= 20, int(r.n_inliers)
@@ -111,7 +111,7 @@ def test_whole_slice_on_rendered_pair_matches_tpusfm():
 def test_two_view_batch_equals_per_pair():
     g1, g2 = _render_views()
     tcfg = config_from(TPipelineConfig, _E2E_CFG)
-    intr = CameraIntrinsics.ideal(160.0, 160.0, 80.0, 80.0)
+    intr = CameraIntrinsics.ideal(160.0, 160.0, 80.0, 80.0, device="cpu")
     imgs = torch.from_numpy(np.stack([g1, g2, g2, g1]))
     fb = sift_detect_and_compute(imgs, tcfg.sift)
     rb = two_view_batch(fb.index(slice(0, None, 2)), fb.index(slice(1, None, 2)), intr, tcfg)

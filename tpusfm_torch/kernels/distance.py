@@ -9,7 +9,8 @@ Three functions, one contract:
   * ``nn_search_torch`` — the plain PyTorch version (port of tpusfm's
     ``nn_search_xla``): blocked matmul + running top-2;
   * ``nn_search_cuda`` — the hand-written CUDA kernel
-    (``csrc/nn_search.cu``), built with nvcc at first use;
+    (``csrc/nn_search.cu``: wgmma on the tensor cores, f32 as 3xTF32),
+    built with nvcc at first use;
   * ``nn_search`` — dispatch on the tensors' device: CPU tensors take the
     plain version, CUDA tensors take the kernel, anything else raises.
 
@@ -31,11 +32,13 @@ BIG = 1e30
 
 # Number of times nn_search_cuda launched its kernel (one per call).
 launches = 0
+# nvcc's output for the loaded library (-Xptxas -v: registers, shared memory, spills).
+build_log = ""
 
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "nn_search.cu"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "tpusfm_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC")
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _VARIANTS = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
@@ -48,6 +51,18 @@ def unpack_bits(x: torch.Tensor) -> torch.Tensor:
     shifts = torch.arange(32, dtype=torch.int32, device=x.device)
     bits = (w.unsqueeze(-1) >> shifts) & 1  # arithmetic shift: bit s is still bit 0
     return bits.reshape(*x.shape[:-1], -1).to(torch.bfloat16)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (f32) = hi + lo + r: hi is x rounded to TF32 (10 explicit mantissa
+    bits, to nearest, ties away from zero, as ``cvt.rna.tf32.f32``), lo the
+    remainder x - hi rounded the same way. The plain version of the CUDA prep
+    kernel's 3xTF32 split; used by the tests."""
+    def rna(v):
+        return ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(x.float().contiguous())
+    return hi, rna(x.float() - hi)
 
 
 def _ones_mask(db):
@@ -93,7 +108,8 @@ def nn_search_torch(q, db, db_mask=None, metric: str = "l2", block: int = 1024):
 
 def _build() -> pathlib.Path:
     """Compile csrc/nn_search.cu with nvcc into build/tpusfm_torch/, keyed by
-    the hash of the source and flags; reuse the library when it exists."""
+    the hash of the source and flags; reuse the library when it exists.
+    nvcc's output goes beside it (.log)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     src = _SRC.read_bytes()
@@ -108,8 +124,9 @@ def _build() -> pathlib.Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     try:
-        subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, str(_SRC)], check=True,
-                       capture_output=True, text=True)
+        done = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, str(_SRC)], check=True,
+                              capture_output=True, text=True)
+        out.with_suffix(".log").write_text(done.stdout + done.stderr)
         os.replace(tmp, out)
     except subprocess.CalledProcessError as e:
         raise RuntimeError(f"nvcc failed building {_SRC}:\n{e.stderr}") from e
@@ -121,14 +138,27 @@ def _build() -> pathlib.Path:
 
 def load_kernel():
     """Build (at first use) and load the CUDA library; returns its handle."""
-    global _lib
+    global _lib, build_log
     if _lib is None:
-        lib = ctypes.CDLL(str(_build()))
-        fn = lib.tpusfm_nn_search
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        path = _build()
+        lib = ctypes.CDLL(str(path))
+        lib.tpusfm_nn_workspace.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.tpusfm_nn_workspace.restype = ctypes.c_longlong
+        lib.tpusfm_nn_search.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                                         + [ctypes.c_void_p])
+        lib.tpusfm_nn_search.restype = ctypes.c_int
+        log = path.with_suffix(".log")
+        build_log = log.read_text() if log.exists() else ""
         _lib = lib
     return _lib
+
+
+def db_splits(B: int, nq: int, ndb: int, d: int, dtype=torch.float32) -> int:
+    """The number of db slices the L2 kernel splits a (B, nq, d) x (B, ndb, d)
+    call into on the current CUDA device (1: no merge pass)."""
+    s = ctypes.c_int(0)
+    load_kernel().tpusfm_nn_workspace(B, nq, ndb, d, _VARIANTS[dtype], ctypes.byref(s))
+    return s.value
 
 
 def nn_search_cuda(q, db, db_mask=None, metric: str = "l2"):
@@ -171,14 +201,15 @@ def nn_search_cuda(q, db, db_mask=None, metric: str = "l2"):
     best = torch.empty((B, nq), dtype=torch.float32, device=q.device)
     second = torch.empty((B, nq), dtype=torch.float32, device=q.device)
     if B * nq > 0:
-        qn = torch.empty((B, nq), dtype=torch.float32, device=q.device)
-        pen = torch.empty((B, max(ndb, 1)), dtype=torch.float32, device=q.device)
         lib = load_kernel()
         with torch.cuda.device(q.device):
+            # prepped operands, norms, penalties and per-slice partials
+            ws = torch.empty(lib.tpusfm_nn_workspace(B, nq, ndb, d, variant, None),
+                             dtype=torch.uint8, device=q.device)
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.tpusfm_nn_search(
-                q.data_ptr(), db.data_ptr(), mask.data_ptr(), qn.data_ptr(),
-                pen.data_ptr(), idx.data_ptr(), best.data_ptr(), second.data_ptr(),
+                q.data_ptr(), db.data_ptr(), mask.data_ptr(), ws.data_ptr(),
+                idx.data_ptr(), best.data_ptr(), second.data_ptr(),
                 B, nq, ndb, d, variant, stream)
         if err != 0:
             raise RuntimeError(f"nn_search kernel launch failed: cudaError {err}")

@@ -109,7 +109,7 @@ class CameraIntrinsics:
 
     @staticmethod
     def ideal(fx: float, fy: float, cx: float, cy: float,
-              device="cpu") -> "CameraIntrinsics":
+              device="cuda") -> "CameraIntrinsics":
         K = torch.tensor([[fx, 0, cx], [0, fy, cy], [0, 0, 1]],
                          dtype=torch.float32, device=device)
         return CameraIntrinsics(K=K, dist=torch.zeros(5, dtype=torch.float32, device=device))

@@ -33,17 +33,17 @@ def config_from(cls, src):
     return cls(**kw)
 
 
-def tensor(a, device="cpu", dtype=None) -> torch.Tensor:
+def tensor(a, device="cuda", dtype=None) -> torch.Tensor:
     """A contiguous tensor on ``device`` from anything np.asarray takes."""
     return torch.from_numpy(np.array(a, copy=True, order="C")).to(device=device, dtype=dtype)
 
 
-def intrinsics_from_numpy(K, dist, device="cpu") -> CameraIntrinsics:
+def intrinsics_from_numpy(K, dist, device="cuda") -> CameraIntrinsics:
     return CameraIntrinsics(K=tensor(K, device, torch.float32),
                             dist=tensor(dist, device, torch.float32))
 
 
-def features_from_numpy(xy, scale, angle, response, mask, desc, device="cpu") -> Features:
+def features_from_numpy(xy, scale, angle, response, mask, desc, device="cuda") -> Features:
     """Features from arrays (any leading batch axis is kept)."""
     f32 = torch.float32
     return Features(
@@ -54,12 +54,12 @@ def features_from_numpy(xy, scale, angle, response, mask, desc, device="cpu") ->
     )
 
 
-def features_from(feat, device="cpu") -> Features:
+def features_from(feat, device="cuda") -> Features:
     """Features from any object with tpusfm's Features field layout."""
     k = feat.kpts
     return features_from_numpy(k.xy, k.scale, k.angle, k.response, k.mask, feat.desc, device)
 
 
-def sample_table_from_numpy(idx, device="cpu") -> torch.Tensor:
+def sample_table_from_numpy(idx, device="cuda") -> torch.Tensor:
     """An (H, S) RANSAC sample table for find_essential_ransac(sample_idx=)."""
     return tensor(idx, device, torch.int64)
