@@ -1,8 +1,10 @@
 """The port on the card (marked ``cuda``; skipped without a CUDA device): the
 hand-written NN-search kernel against its plain PyTorch version (at the main
-path's widths and at the kernel's edges: row counts either side of the
-64-row warpgroup and 128-row tile, D off the 128-byte chunk, ties across db
-slices, masks), and the two-view slice on the card against the CPU.
+path's widths, at the kernel's edges: row counts either side of the 64-row
+warpgroup and 128-row tile, D off the 128-byte chunk, ties across db
+slices, masks; and in its dense modes on a rendered stereo pair's dense ORB
+and dense SIFT descriptors), and the two-view slice (bf, GMS, LOGOS) and
+the sparse disparity cells on the card against the CPU.
 
 This file imports no jax, so it runs where jax is absent:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -120,3 +122,88 @@ def test_two_view_on_cuda_matches_cpu(cuda_device):
     assert (rg.R.cpu() - rc.R).abs().max() < 1e-3
     assert float(rg.t.cpu() @ rc.t) > 0.999
     assert abs(int(rg.n_inliers) - int(rc.n_inliers)) <= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("features", ["dense_orb", "dense_sift"])
+def test_cuda_dense_modes_match_plain_version_on_real_descriptors(cuda_device, features):
+    """The kernel in its dense modes on a rendered stereo pair's own
+    descriptors (one query per pixel): Hamming on dense ORB words exactly
+    equal, border rows masked; f32 L2 on dense SIFT within rtol 1e-5,
+    atol 1e-4."""
+    from chip_smoke import compare, render_stereo_pair
+    from tpusfm_torch.stereo.disparity import dense_features, dense_orb_features
+
+    left, right, _ = (torch.from_numpy(a).to(cuda_device) for a in render_stereo_pair(150, 200))
+    make = dense_orb_features if features == "dense_orb" else dense_features
+    f1, f2 = make(left), make(right)
+    metric = "hamming" if features == "dense_orb" else "l2"
+    if features == "dense_orb":
+        assert f1.desc.dtype == torch.uint32 and not bool(f2.kpts.mask.all())
+    compare(td, features, (f1.desc, f2.desc, f2.kpts.mask.float()), metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["sift", "orb", "gms", "logos"])
+def test_cuda_sparse_disparity_cells_match_cpu(cuda_device, alg):
+    """A sparse cell of run_disparity_benchmark on the card against the port
+    on the CPU (rms within 1e-3 relative, count and n_matches within 1%),
+    one NN-search launch; LOGOS with the CPU's vocabulary on both sides."""
+    from chip_smoke import render_stereo_pair
+    from tpusfm_torch.config import PipelineConfig
+    from tpusfm_torch.features.sift import sift_detect_and_compute
+    from tpusfm_torch.match.kmeans import kmeans
+    from tpusfm_torch.stereo import run_disparity_benchmark
+
+    cfg = PipelineConfig()
+    cpu = [torch.from_numpy(a) for a in render_stereo_pair(150, 200)]
+    centers = None
+    if alg == "logos":
+        f = sift_detect_and_compute(cpu[0], cfg.sift)
+        centers, _ = kmeans(f.desc, f.kpts.mask, cfg.logos.num_words, cfg.logos.kmeans_iters)
+    c = run_disparity_benchmark(*cpu, alg, "sparse", 4.0, cfg, logos_centers=centers)
+    before = td.launches
+    g = run_disparity_benchmark(*(t.to(cuda_device) for t in cpu), alg, "sparse", 4.0, cfg,
+                                logos_centers=None if centers is None else centers.to(cuda_device))
+    torch.cuda.synchronize()
+    assert td.launches == before + 1
+    assert abs(g["rms"] - c["rms"]) <= 1e-3 * c["rms"]
+    assert abs(g["count"] - c["count"]) <= 0.01 * c["count"]
+    assert abs(g["n_matches"] - c["n_matches"]) <= 0.01 * c["n_matches"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["gms", "logos"])
+def test_cuda_two_view_gms_logos_match_cpu(cuda_device, algo):
+    """two_view_sfm with GMS (one launch) or LOGOS (none) on the card against
+    the CPU on the same features, RANSAC samples and vocabulary."""
+    from chip_smoke import render_small_pair, to_device
+    from tpusfm_torch.config import MatchConfig, PipelineConfig, RansacConfig, SiftConfig
+    from tpusfm_torch.features.sift import sift_detect_and_compute
+    from tpusfm_torch.geometry.epipolar import sample_table
+    from tpusfm_torch.match.kmeans import kmeans
+    from tpusfm_torch.sfm import two_view_sfm
+    from tpusfm_torch.types import CameraIntrinsics
+
+    cfg = PipelineConfig(sift=SiftConfig(max_features=256, upsample=False),
+                         match=MatchConfig(max_matches=256),
+                         ransac=RansacConfig(n_hypotheses=128, threshold_px=2.0))
+    fc = [sift_detect_and_compute(torch.from_numpy(g), cfg.sift) for g in render_small_pair()]
+    centers = None
+    if algo == "logos":
+        centers, _ = kmeans(fc[0].desc, fc[0].kpts.mask, cfg.logos.num_words,
+                            cfg.logos.kmeans_iters)
+    size = (160, 160)
+    rc = two_view_sfm(*fc, CameraIntrinsics.ideal(160.0, 160.0, 80.0, 80.0, "cpu"), algo, size,
+                      size, cfg, centers=centers)
+    table = sample_table(rc.matches.mask, cfg.ransac)
+    before = td.launches
+    rg = two_view_sfm(*(to_device(f, cuda_device) for f in fc),
+                      CameraIntrinsics.ideal(160.0, 160.0, 80.0, 80.0, cuda_device), algo, size,
+                      size, cfg, sample_idx=table.to(cuda_device),
+                      centers=None if centers is None else centers.to(cuda_device))
+    torch.cuda.synchronize()
+    assert td.launches == before + (1 if algo == "gms" else 0)
+    assert int(rg.n_matches) == int(rc.n_matches)
+    assert (rg.R.cpu() - rc.R).abs().max() < 1e-3
+    assert float(rg.t.cpu() @ rc.t) > 0.999

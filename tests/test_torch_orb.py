@@ -1,0 +1,117 @@
+"""Parity of the port's image transforms and ORB (tpusfm_torch.io.image,
+tpusfm_torch.features.orb) with tpusfm's on CPU, and of the Hamming NN
+search on ORB's packed words."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from chip_smoke import render_small_pair
+from tpusfm.config import OrbConfig as JaxOrbConfig
+from tpusfm.features.orb import dense_orb_descriptors as jax_dense_orb
+from tpusfm.features.orb import orb_detect_and_compute as jax_orb
+from tpusfm.features.scalespace import conv1d_slices as jax_conv1d_slices
+from tpusfm.io.image import resize as jax_resize
+from tpusfm.io.image import rotate as jax_rotate
+from tpusfm.kernels.distance import nn_search_xla
+from tpusfm_torch.config import OrbConfig
+from tpusfm_torch.features import scalespace as ss
+from tpusfm_torch.features.orb import dense_orb_descriptors, orb_detect_and_compute
+from tpusfm_torch.io.image import resize, rotate
+from tpusfm_torch.kernels.distance import nn_search_torch
+from tpusfm_torch.utils.convert import config_from
+
+torch.set_num_threads(2)
+
+
+def _words(t):
+    """A port descriptor tensor (uint32) as a numpy uint32 array."""
+    return t.view(torch.int32).numpy().view(np.uint32)
+
+
+@pytest.fixture(scope="module")
+def view():
+    return render_small_pair()[0]
+
+
+@pytest.fixture(scope="module")
+def orb_both(view):
+    # three pyramid levels (160, 133, 111 px) keep tpusfm's compile short
+    cfg = JaxOrbConfig(n_levels=3)
+    return jax_orb(jnp.array(view), cfg), orb_detect_and_compute(torch.from_numpy(view),
+                                                                  config_from(OrbConfig, cfg))
+
+
+@pytest.mark.parametrize("shape", [(133, 133), (97, 120), (300, 250), (160, 311)])
+def test_resize_matches_tpusfm(view, shape):
+    """Down- and upscaling, antialiased like jax.image.resize "linear"."""
+    ref = np.asarray(jax_resize(jnp.array(view), *shape))
+    got = resize(torch.from_numpy(view), *shape).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("degrees", [180.0, 90.0])
+def test_rotate_matches_tpusfm(view, degrees):
+    ref = np.asarray(jax_rotate(jnp.array(view), degrees))
+    np.testing.assert_allclose(rotate(torch.from_numpy(view), degrees).numpy(), ref,
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["edge", "constant", "reflect"])
+def test_conv1d_modes_match_tpusfm(view, mode):
+    """conv1d (conv2d) within f32 rounding; conv1d_slices (ORB's blurs)
+    bit-equal to tpusfm's conv1d_slices, on both axes."""
+    taps = ss.gaussian_kernel1d(2.0)
+    x = torch.from_numpy(view)
+    for axis in (0, 1):
+        ref = np.asarray(jax_conv1d_slices(jnp.array(view), taps, axis, mode=mode))
+        np.testing.assert_array_equal(ss.conv1d_slices(x, taps, axis - 2, mode).numpy(), ref)
+        np.testing.assert_allclose(ss.conv1d(x, taps, axis - 2, mode).numpy(), ref, atol=1e-6)
+
+
+def test_orb_detect_and_compute_matches_tpusfm(orb_both):
+    """On the 160x160 rendered view: the same keypoints (xy exact, same
+    order), and descriptors bit-equal on >= 99% of them (100% measured:
+    the blurs are bit-equal, only the orientation sums round differently,
+    which moves a keypoint only when its angle sits on a bin edge)."""
+    ref, got = orb_both
+    mask = np.asarray(ref.kpts.mask)
+    np.testing.assert_array_equal(got.kpts.mask.numpy(), mask)
+    assert mask.sum() > 100
+    np.testing.assert_array_equal(got.kpts.xy.numpy(), np.asarray(ref.kpts.xy))
+    np.testing.assert_array_equal(got.kpts.scale.numpy(), np.asarray(ref.kpts.scale))
+    np.testing.assert_allclose(got.kpts.response.numpy(), np.asarray(ref.kpts.response),
+                               rtol=1e-5, atol=1e-9)
+    assert got.desc.dtype == torch.uint32 and tuple(got.desc.shape) == (500, 8)
+    same = (_words(got.desc) == np.asarray(ref.desc)).all(1)[mask]
+    assert same.mean() >= 0.99, same.mean()
+
+
+def test_dense_orb_descriptors_bit_equal(view):
+    ref_d, ref_v = jax_dense_orb(jnp.array(view))
+    got_d, got_v = dense_orb_descriptors(torch.from_numpy(view))
+    np.testing.assert_array_equal(_words(got_d), np.asarray(ref_d))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(ref_v))
+    assert got_v.sum() == (160 - 62) ** 2
+
+
+def test_hamming_nn_search_on_orb_words_matches_tpusfm(orb_both):
+    """Hamming NN search on packed words: distances equal to tpusfm's
+    nn_search_xla; indices equal wherever the best distance is unique
+    (integer distances tie often: the port takes the lowest index)."""
+    ref, got = orb_both
+    n = int(got.kpts.mask.sum())
+    words = np.asarray(ref.desc)[:n]
+    q, db = got.desc[:n:2].contiguous(), got.desc[1:n:2].contiguous()
+    mask = torch.from_numpy(np.arange(db.shape[0]) % 5 != 0).float()
+    ti, tb, ts = nn_search_torch(q, db, mask, metric="hamming")
+    ji, jb, js = (np.asarray(a) for a in nn_search_xla(
+        jnp.asarray(words[0::2]), jnp.asarray(words[1::2]), jnp.asarray(mask.numpy()),
+        metric="hamming"))
+    np.testing.assert_array_equal(tb.numpy(), jb)
+    np.testing.assert_array_equal(ts.numpy(), js)
+    unique = jb < js
+    assert unique.sum() > n // 4
+    np.testing.assert_array_equal(ti.numpy()[unique], ji[unique])
+    assert (mask.numpy()[ti.numpy()] == 1).all()

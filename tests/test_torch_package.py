@@ -31,7 +31,9 @@ _MODULES = [
     "tpusfm_torch.geometry.triangulate", "tpusfm_torch.geometry.five_point",
     "tpusfm_torch.geometry.epipolar", "tpusfm_torch.geometry.pose",
     "tpusfm_torch.features.scalespace", "tpusfm_torch.features.sift",
-    "tpusfm_torch.sfm", "tpusfm_torch.sfm.two_view",
+    "tpusfm_torch.features.orb", "tpusfm_torch.features.dense", "tpusfm_torch.match.gms",
+    "tpusfm_torch.match.kmeans", "tpusfm_torch.match.logos", "tpusfm_torch.stereo",
+    "tpusfm_torch.stereo.disparity", "tpusfm_torch.sfm", "tpusfm_torch.sfm.two_view",
 ]
 
 
@@ -142,3 +144,27 @@ def test_dataset_and_imread(tmp_path):
     g = imread_gray(str(p))
     ref = (rgb.astype(np.float32) / 255.0) @ np.array([0.299, 0.587, 0.114], np.float32)
     np.testing.assert_allclose(g, ref, rtol=1e-6)
+
+
+def test_packaging_ships_the_ports_data_and_a_torch_extra():
+    """The BRIEF pattern travels with the port (its own copy, byte-equal to
+    tpusfm's), and pyproject installs it and names the torch extra."""
+    import tomllib
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "pyproject.toml"), "rb") as fh:
+        cfg = tomllib.load(fh)
+    assert "features/*.npy" in cfg["tool"]["setuptools"]["package-data"]["tpusfm_torch"]
+    assert any(r.startswith("torch") for r in cfg["project"]["optional-dependencies"]["torch"])
+    with open(os.path.join(root, "tpusfm_torch", "features", "_brief_pattern.npy"), "rb") as a, \
+            open(os.path.join(root, "tpusfm", "features", "_brief_pattern.npy"), "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_packed_words_convert_bit_for_bit():
+    """uint32 descriptors (ORB's packed words) keep their dtype and bits."""
+    words = np.array([[0, 1, 2**31, 2**32 - 1]], np.uint32)
+    f = features_from_numpy(np.zeros((1, 2)), np.zeros(1), np.zeros(1), np.zeros(1),
+                            np.ones(1, bool), words, device="cpu")
+    assert f.desc.dtype == torch.uint32
+    np.testing.assert_array_equal(f.desc.view(torch.int32).numpy().view(np.uint32), words)

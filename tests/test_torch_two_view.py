@@ -1,7 +1,10 @@
 """Parity of the port's two-view slice (tpusfm_torch.sfm) with tpusfm on CPU:
 synthetic descriptors and tpusfm's own SIFT features through both
-two_view_sfm with the RANSAC samples injected, and the whole slice (SIFT
-included) on the rendered scene of tests/test_e2e.py."""
+two_view_sfm (bf, gms and logos) with the RANSAC samples injected, and the
+whole slice (SIFT included) on the rendered scene of tests/test_e2e.py."""
+import dataclasses
+import inspect
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -9,8 +12,9 @@ import torch
 
 from __graft_entry__ import entry
 from chip_smoke import render_small_pair as _render_views
-from tpusfm.config import MatchConfig, PipelineConfig, RansacConfig, SiftConfig
+from tpusfm.config import GmsConfig, MatchConfig, PipelineConfig, RansacConfig, SiftConfig
 from tpusfm.features.sift import sift_detect_and_compute as jax_sift
+from tpusfm.match.kmeans import kmeans as jax_kmeans
 from tpusfm.sfm import two_view_sfm as jax_two_view_sfm
 from tpusfm.types import CameraIntrinsics as JaxIntrinsics
 from tpusfm.types import Features as JaxFeatures
@@ -21,7 +25,7 @@ from tpusfm_torch.sfm import two_view_batch, two_view_sfm
 from tpusfm_torch.sfm.two_view import match_features
 from tpusfm_torch.types import CameraIntrinsics, Features, Keypoints
 from tpusfm_torch.utils.convert import (config_from, features_from, intrinsics_from_numpy,
-                                        sample_table_from_numpy)
+                                        sample_table_from_numpy, vocabulary_from)
 
 torch.set_num_threads(2)
 
@@ -125,9 +129,51 @@ def test_two_view_batch_equals_per_pair():
 
 
 @pytest.mark.parametrize("algo", ["gms", "logos"])
+@pytest.mark.parametrize("source", ["entry_descriptors", "tpusfm_sift"])
+def test_two_view_sfm_gms_and_logos_match_tpusfm(source, algo):
+    """GMS (one unpruned raw match, then the grid filter) and LOGOS
+    (tpusfm's vocabulary injected) through both two_view_sfm, with the
+    RANSAC samples injected: the same match set, n_inliers +-1, R and t
+    within 1e-4."""
+    if source == "entry_descriptors":
+        f1, f2, intr, cfg = _entry_features()
+        size = (500, 500)
+        # random positions: a lenient grid keeps some matches to compare
+        cfg = dataclasses.replace(cfg, gms=GmsConfig(grid_rows=5, grid_cols=5,
+                                                     threshold_factor=1.0))
+    else:
+        g1, g2 = _render_views()
+        cfg = _E2E_CFG
+        f1, f2 = (jax_sift(jnp.array(g), cfg.sift) for g in (g1, g2))
+        intr = JaxIntrinsics.ideal(160.0, 160.0, 80.0, 80.0)
+        size = (160, 160)
+    rj = jax_two_view_sfm(f1, f2, intr, algo, size, size, cfg)
+    centers = None
+    if algo == "logos":
+        c, _ = jax_kmeans(f1.desc, f1.kpts.mask, cfg.logos.num_words, cfg.logos.kmeans_iters)
+        centers = vocabulary_from(c, device="cpu")
+    rt = two_view_sfm(features_from(f1, device="cpu"), features_from(f2, device="cpu"),
+                      intrinsics_from_numpy(intr.K, intr.dist, device="cpu"), algo, size, size,
+                      config_from(TPipelineConfig, cfg),
+                      sample_idx=_jax_table(rj.matches.mask, cfg.ransac), centers=centers)
+    assert rt.matches.capacity == rj.matches.capacity
+    _assert_same_result(rt, rj)
+    assert int(rt.n_matches) > 0
+
+
+def test_two_view_sfm_defaults_to_gms_as_tpusfm():
+    for fn in (jax_two_view_sfm, two_view_sfm):
+        assert inspect.signature(fn).parameters["algo"].default == "gms"
+
+
+@pytest.mark.parametrize("algo", ["gms", "logos"])
 def test_unported_matchers_raise(algo):
-    f = Features(kpts=Keypoints(*(torch.zeros(4, 2) if i == 0 else torch.zeros(4)
-                                  for i in range(4)), torch.ones(4, dtype=torch.bool)),
-                 desc=torch.zeros(4, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        match_features(f, f, algo)
+    """GMS and LOGOS, once unported, now run: each returns a match set of
+    capacity N1 on a tiny input; an unknown algo still raises."""
+    f = Features(kpts=Keypoints(torch.arange(16.0).reshape(8, 2), torch.ones(8), torch.zeros(8),
+                                torch.ones(8), torch.ones(8, dtype=torch.bool)),
+                 desc=torch.eye(8))
+    m = match_features(f, f, algo, (16, 16), (16, 16))
+    assert m.capacity == 8 and m.mask.dtype == torch.bool
+    with pytest.raises(ValueError, match="unknown algo"):
+        match_features(f, f, algo + "x")

@@ -6,12 +6,14 @@ compare row for row against the JAX package, which stays the reference.
 It never imports jax.
 
 Package map:
-  io/        grayscale decode, dataset manifests
+  io/        grayscale decode, dataset manifests, resize / rotate
   kernels/   the hand-written CUDA NN-search kernel + its plain torch version
-  features/  scale space, SIFT (fast-descriptor path)
-  match/     brute-force matching with the reference's prune rules
+  features/  scale space, SIFT (fast-descriptor path), ORB, dense SIFT
+  match/     brute-force matching with the reference's prune rules, GMS,
+             k-means, LOGOS
   geometry/  undistortion, five-point RANSAC, recoverPose, triangulation
   sfm/       two-view SfM over one pair or a batch of pairs
+  stereo/    match-based disparity and the reference's RMS benchmark grid
   utils/     padding helpers, conversion of shared state from numpy
 """
 

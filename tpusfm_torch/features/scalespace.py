@@ -23,20 +23,50 @@ def gaussian_kernel1d(sigma: float) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
+# jnp.pad modes -> F.pad modes ("reflect" is REFLECT_101 in both: the edge
+# pixel is not repeated)
+_PAD_MODES = {"edge": "replicate", "constant": "constant", "reflect": "reflect"}
+
+
+def _pad_axis(x4, r: int, rows: bool, mode: str):
+    """Pad (N, 1, H, W) by r on both sides of H (rows) or W."""
+    return F.pad(x4, (0, 0, r, r) if rows else (r, r, 0, 0), mode=_PAD_MODES[mode])
+
+
 def conv1d(x, taps, axis: int, mode: str = "edge"):
     """1-D correlation of (..., H, W) along ``axis`` (-2 or -1) with odd-length
-    ``taps``: edge-replicate ("edge") or zero ("constant") padding."""
+    ``taps``: edge-replicate ("edge"), zero ("constant") or mirror without
+    the edge pixel ("reflect") padding."""
     taps = np.asarray(taps, np.float32)
     r = (len(taps) - 1) // 2
     h, w = x.shape[-2:]
-    x4 = x.reshape(-1, 1, h, w)
+    rows = axis % x.dim() == x.dim() - 2
     k = torch.as_tensor(taps, dtype=x.dtype, device=x.device)
-    if axis % x.dim() == x.dim() - 2:
-        weight, pad = k.view(1, 1, -1, 1), (0, 0, r, r)
-    else:
-        weight, pad = k.view(1, 1, 1, -1), (r, r, 0, 0)
-    x4 = F.pad(x4, pad, mode="replicate" if mode == "edge" else "constant")
+    weight = k.view(1, 1, -1, 1) if rows else k.view(1, 1, 1, -1)
+    x4 = _pad_axis(x.reshape(-1, 1, h, w), r, rows, mode)
     return F.conv2d(x4, weight).reshape(x.shape)
+
+
+def conv1d_slices(x, taps, axis: int, mode: str = "edge"):
+    """The same correlation as ``conv1d``, as a tap-weighted sum of shifted
+    slices in tap order: elementwise f32 products and adds only, so it
+    rounds as tpusfm's ``conv1d_slices`` does, bit for bit, on the CPU and
+    on the card alike. For short filters whose outputs are compared with
+    each other (ORB's BRIEF tests), where conv2d's summation order would
+    flip bits."""
+    taps = np.asarray(taps, np.float32)
+    r = (len(taps) - 1) // 2
+    h, w = x.shape[-2:]
+    rows = axis % x.dim() == x.dim() - 2
+    xp = _pad_axis(x.reshape(-1, 1, h, w), r, rows, mode)[:, 0]
+    n = h if rows else w
+    acc = None
+    for i, t in enumerate(taps):
+        if t == 0.0:
+            continue
+        term = float(t) * xp.narrow(-2 if rows else -1, i, n)     # an f32 product: t is f32
+        acc = term if acc is None else acc + term
+    return (acc if acc is not None else torch.zeros_like(x)).reshape(x.shape)
 
 
 def decimate2(x, axis: int):

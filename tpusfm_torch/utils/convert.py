@@ -2,7 +2,9 @@
 
 The pipeline has no learned weights. What tpusfm and the port must share to
 compute the same thing is: the config dataclasses, the camera intrinsics,
-the features (keypoints and descriptors) and the RANSAC sample table. These
+the features (keypoints and descriptors), the RANSAC sample table and, for
+tests that carry one stage's result into the next, match sets, visual-word
+assignments and k-means vocabularies. These
 functions build the port's objects from numpy arrays, from objects whose
 fields convert with ``np.asarray`` (tpusfm's containers included), or from
 config dataclasses via ``dataclasses.asdict``.
@@ -14,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpusfm_torch.types import CameraIntrinsics, Features, Keypoints
+from tpusfm_torch.types import CameraIntrinsics, Features, Keypoints, Matches
 
 
 def config_from(cls, src):
@@ -34,8 +36,13 @@ def config_from(cls, src):
 
 
 def tensor(a, device="cuda", dtype=None) -> torch.Tensor:
-    """A contiguous tensor on ``device`` from anything np.asarray takes."""
-    return torch.from_numpy(np.array(a, copy=True, order="C")).to(device=device, dtype=dtype)
+    """A contiguous tensor on ``device`` from anything np.asarray takes.
+    uint32 arrays (packed binary descriptors) keep their dtype; they travel
+    as int32, since torch copies few dtypes of that width to the card."""
+    a = np.array(a, copy=True, order="C")
+    if a.dtype == np.uint32 and dtype is None:
+        return torch.from_numpy(a.view(np.int32)).to(device=device).view(torch.uint32)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
 def intrinsics_from_numpy(K, dist, device="cuda") -> CameraIntrinsics:
@@ -43,21 +50,45 @@ def intrinsics_from_numpy(K, dist, device="cuda") -> CameraIntrinsics:
                             dist=tensor(dist, device, torch.float32))
 
 
+def _keypoints(xy, scale, angle, response, mask, device) -> Keypoints:
+    f32 = torch.float32
+    return Keypoints(xy=tensor(xy, device, f32), scale=tensor(scale, device, f32),
+                     angle=tensor(angle, device, f32), response=tensor(response, device, f32),
+                     mask=tensor(mask, device, torch.bool))
+
+
 def features_from_numpy(xy, scale, angle, response, mask, desc, device="cuda") -> Features:
     """Features from arrays (any leading batch axis is kept)."""
-    f32 = torch.float32
-    return Features(
-        kpts=Keypoints(xy=tensor(xy, device, f32), scale=tensor(scale, device, f32),
-                       angle=tensor(angle, device, f32), response=tensor(response, device, f32),
-                       mask=tensor(mask, device, torch.bool)),
-        desc=tensor(desc, device),
-    )
+    return Features(kpts=_keypoints(xy, scale, angle, response, mask, device),
+                    desc=tensor(desc, device))
 
 
 def features_from(feat, device="cuda") -> Features:
     """Features from any object with tpusfm's Features field layout."""
     k = feat.kpts
     return features_from_numpy(k.xy, k.scale, k.angle, k.response, k.mask, feat.desc, device)
+
+
+def keypoints_from(kpts, device="cuda") -> Keypoints:
+    """Keypoints from any object with tpusfm's Keypoints field layout."""
+    return _keypoints(kpts.xy, kpts.scale, kpts.angle, kpts.response, kpts.mask, device)
+
+
+def matches_from(m, device="cuda") -> Matches:
+    """Matches from any object with tpusfm's Matches field layout."""
+    return Matches(idx1=tensor(m.idx1, device, torch.int32), idx2=tensor(m.idx2, device, torch.int32),
+                   distance=tensor(m.distance, device, torch.float32),
+                   mask=tensor(m.mask, device, torch.bool))
+
+
+def vocabulary_from(centers, device="cuda") -> torch.Tensor:
+    """A k-means vocabulary (k, D) f32 for logos_match(centers=)."""
+    return tensor(centers, device, torch.float32)
+
+
+def words_from(words, device="cuda") -> torch.Tensor:
+    """Per-keypoint visual-word ids (N,) for logos_verify."""
+    return tensor(words, device, torch.int64)
 
 
 def sample_table_from_numpy(idx, device="cuda") -> torch.Tensor:
