@@ -9,9 +9,11 @@ Phases (any failure raises and the script exits non-zero):
      at B=2 x 10000 x 10000 x 128 with masked rows, an all-masked db,
      duplicated db rows, bf16 L2, Hamming on (2048, 8) uint32 words, the L2
      kernel's edges (EDGE_SHAPES; exact ties across db tiles and slices,
-     all-masked, masked rows in the ragged last tile) in f32 and bf16, and
-     the dense-mode shape (1 x 262144 x 65536 x 128); times the kernel, the
-     plain version and torch.bmm (the yardstick, full f32) with CUDA events;
+     all-masked, masked rows in the ragged last tile) in f32 and bf16, the
+     Hamming kernel's edges (HAMMING_SHAPES x HAMMING_KINDS, bit for bit,
+     and HAMMING_WIDE, past the reach of 32-bit keys), and the dense-mode
+     shape (1 x 262144 x 65536 x 128); times the kernel, the plain version
+     and torch.bmm (the yardstick, full f32) with CUDA events;
   4. checks the port on the card against the port on the CPU on the small
      rendered pair of tests/test_e2e.py;
   5. drives the main path -- sift_detect_and_compute at 10k features on a
@@ -36,6 +38,7 @@ the two-view, disparity and stage results); the last line is
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import time
 
@@ -79,28 +82,45 @@ def sift_like(gen, *shape):
 # several db slices.
 EDGE_SHAPES = [(1, 1, 1, 8), (3, 63, 127, 37), (1, 65, 129, 256), (3, 10000, 3000, 128)]
 EDGE_KINDS = ["ties", "all_masked", "ragged_mask"]
+# (B, Nq, Ndb, words) at the Hamming kernel's edges: either side of the
+# 64-row warpgroup, the 128-row tile and a 4-word (128-byte) K chunk,
+# several db slices, one query tile a block (20 words: the ring holds one db
+# tile, not two query tiles) and queries streamed beside the db (256 words:
+# no ping-pong); then shapes whose field and index need 64-bit keys (the
+# second also streams its queries).
+HAMMING_SHAPES = [(1, 1, 1, 1), (3, 63, 127, 3), (1, 65, 129, 8), (3, 10000, 3000, 8),
+                  (1, 64, 300, 16), (1, 700, 900, 20), (2, 300, 1000, 256)]
+HAMMING_KINDS = ["random", "ties", "all_masked", "ragged_mask", "one_valid"]
+HAMMING_WIDE = [(1, 300, 4_200_000, 8), (1, 64, 140_000, 256)]
 
 
 def edge_case(kind, B, nq, ndb, d, dtype, seed=0):
-    """Inputs on the card for one case of the L2 kernel: unit rows (so
-    distances lie in [0, 4] and a gap of 1e-4 is clear) and a random 10%
-    mask, then by kind:
+    """Inputs on the card for one case of the kernel: for L2 unit rows (so
+    distances lie in [0, 4] and a gap of 1e-4 is clear), for Hamming
+    (dtype torch.uint32) random words, D of them a row; a random 10% mask,
+    then by kind:
       * "ties": copies of one row either side of every 128-row tile boundary
         (db slices begin and end there), those below a middle tile's last row
         masked, and the first queries equal to the row: that last row must
         win over its twin in the next tile (and slice);
       * "all_masked": every db row masked: idx -1, distances 1e30;
       * "ragged_mask": every other row of the last (ragged) db tile masked
-        and the first queries equal to those rows: they must not win.
+        and the first queries equal to those rows: they must not win;
+      * "one_valid": only the middle db row valid: every query gets it, and
+        second = 1e30.
     Returns (q, db, mask, expect): expect maps query positions to the index
     they must get, or is None."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    words = dtype == torch.uint32
 
-    def unit(*s):
+    def rows(*s):
+        if words:
+            return torch.randint(-2**31, 2**31 - 1, s, device="cuda", generator=gen,
+                                 dtype=torch.int32)
         x = torch.randn(*s, device="cuda", generator=gen)
         return x / x.norm(dim=-1, keepdim=True)
 
-    q, db = unit(B, nq, d), unit(B, ndb, d)
+    q, db = rows(B, nq, d), rows(B, ndb, d)
     mask = (torch.rand(B, ndb, device="cuda", generator=gen) > 0.1).float()
     expect = None
     nfirst = min(nq, 4)
@@ -120,9 +140,14 @@ def edge_case(kind, B, nq, ndb, d, dtype, seed=0):
         last = torch.arange(ndb - 1 - (ndb - 1) % 128, ndb, 2, device="cuda")
         mask[:, last] = 0.0
         q[:, :nfirst] = db[:, last[torch.arange(nfirst, device="cuda") % len(last)]]
+    elif kind == "one_valid":
+        mask = torch.zeros_like(mask)
+        mask[:, ndb // 2] = 1.0
+        expect = {i: ndb // 2 for i in range(nfirst)} | {nq - 1: ndb // 2}
     elif kind != "random":
         raise ValueError(kind)
-    return q.to(dtype).contiguous(), db.to(dtype).contiguous(), mask, expect
+    cast = (lambda x: x.view(torch.uint32)) if words else (lambda x: x.to(dtype))
+    return cast(q).contiguous(), cast(db).contiguous(), mask, expect
 
 
 def compare(distance, name, args, metric="l2", expect=None):
@@ -152,6 +177,8 @@ def compare(distance, name, args, metric="l2", expect=None):
         ok = ok and bool((ki[..., pos] == want).all())
         none = [i for i, w in expect.items() if w == -1]
         ok = ok and bool((kb[..., none] == 1e30).all() and (ks[..., none] == 1e30).all())
+        if (args[2] != 0).sum(-1).max() == 1:     # one valid row: no second
+            ok = ok and bool((ks == 1e30).all())
     print(f"kernel check {name}: max_abs_err={err} ok={ok}", flush=True)
     if not ok:
         raise AssertionError(f"nn_search kernel disagrees with nn_search_torch: {name}")
@@ -193,6 +220,27 @@ def hamming_bounds_ms(nq, ndb, words):
     return max(int8_ms, mem_ms), max(popc_ms, mem_ms)
 
 
+def check_hamming_edges(distance):
+    """Phase 3's Hamming cases: every kind at every edge shape, then the
+    64-bit-key shapes (random and ties), bit for bit against the plain
+    version; the library's key layout equals distance.hamming_key_shift's."""
+    for shape in HAMMING_SHAPES + HAMMING_WIDE:
+        shift = distance.key_shift(*shape)
+        if shift != distance.hamming_key_shift(shape[3], shape[2]):
+            raise AssertionError(f"key layout of {shape}: library {shift}, plain version "
+                                 f"{distance.hamming_key_shift(shape[3], shape[2])}")
+        wide = shape in HAMMING_WIDE
+        if wide != (shift == 32):
+            raise AssertionError(f"{shape}: expected {'64' if wide else '32'}-bit keys")
+        for kind in (["random", "ties"] if wide else HAMMING_KINDS):
+            q_, db_, m_, expect = edge_case(kind, *shape, torch.uint32)
+            compare(distance, f"hamming B,Nq,Ndb,words={shape} {kind} (key shift {shift}, "
+                    f"db slices {distance.db_splits(*shape, torch.uint32, 'hamming')})",
+                    (q_, db_, m_), "hamming", expect)
+        del q_, db_, m_
+        torch.cuda.empty_cache()
+
+
 def check_real_traffic(distance, left, right) -> dict:
     """Phase 6: the kernel against its plain version on the disparity pair's
     own descriptors, at the shapes phase 8 gives it: sparse SIFT (f32 L2,
@@ -230,11 +278,12 @@ def check_real_traffic(distance, left, right) -> dict:
     compare(distance, f"dense ORB hamming {nq}x{ndb}x{words}", args, "hamming")
     ms, plain, _ = time_kernel(distance, "dense ORB hamming", args, 3, 1, metric="hamming")
     int8_ms, popc_ms = hamming_bounds_ms(nq, ndb, words)
+    splits = distance.db_splits(1, nq, ndb, words, torch.uint32, "hamming")
     print(f"dense ORB hamming bounds: int8 tensor cores {int8_ms:.3f} ms, "
-          f"CUDA-core popcount {popc_ms:.3f} ms", flush=True)
+          f"CUDA-core popcount {popc_ms:.3f} ms; db slices {splits}", flush=True)
     out.update(hamming_dense_shape=[1, nq, ndb, words], hamming_dense_ms=ms,
                hamming_dense_plain_ms=plain, hamming_dense_bound_ms=int8_ms,
-               hamming_dense_popc_bound_ms=popc_ms)
+               hamming_dense_popc_bound_ms=popc_ms, hamming_dense_db_splits=splits)
 
     s1, s2 = dense_features(left), dense_features(right)
     args = (s1.desc, s2.desc, s2.kpts.mask.float())
@@ -274,6 +323,7 @@ def check_kernel(distance) -> dict:
                                   dtype=torch.int32).view(torch.uint32)
     compare(distance, "hamming 2048x8 uint32", (words(), words(), torch.ones(2048, device="cuda")),
             metric="hamming")
+    check_hamming_edges(distance)
     for dtype in (torch.float32, torch.bfloat16):
         for shape in EDGE_SHAPES:
             compare(distance, f"{dtype} B,Nq,Ndb,D={shape} random",
@@ -655,6 +705,11 @@ def main():
     distance.load_kernel()
     print(f"built nn_search kernel in {time.perf_counter() - t0:.1f} s", flush=True)
     print(distance.build_log.strip(), flush=True)
+    regs = re.findall(r"Used (\d+) registers", distance.build_log)
+    spills = sum(map(int, re.findall(r"(\d+) bytes spill stores", distance.build_log)))
+    serial = "C7515" in distance.build_log
+    print(f"build log: registers {regs}, spill stores {spills} bytes, wgmma serialized "
+          f"(C7515) {'yes' if serial else 'no'}", flush=True)
 
     record = check_kernel(distance)
 

@@ -2,9 +2,10 @@
 hand-written NN-search kernel against its plain PyTorch version (at the main
 path's widths, at the kernel's edges: row counts either side of the 64-row
 warpgroup and 128-row tile, D off the 128-byte chunk, ties across db
-slices, masks; and in its dense modes on a rendered stereo pair's dense ORB
-and dense SIFT descriptors), and the two-view slice (bf, GMS, LOGOS) and
-the sparse disparity cells on the card against the CPU.
+slices, masks; Hamming bit for bit at its edges, with 32- and 64-bit keys;
+and in its dense modes on a rendered stereo pair's dense ORB and dense SIFT
+descriptors), and the two-view slice (bf, GMS, LOGOS) and the sparse
+disparity cells on the card against the CPU.
 
 This file imports no jax, so it runs where jax is absent:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -12,6 +13,7 @@ This file imports no jax, so it runs where jax is absent:
 import pytest
 import torch
 
+from chip_smoke import HAMMING_KINDS, HAMMING_SHAPES, HAMMING_WIDE
 from tpusfm_torch.kernels import distance as td
 
 torch.set_num_threads(2)
@@ -99,6 +101,35 @@ def test_cuda_l2_kernel_ties_and_masks(cuda_device, dtype, kind, shape):
         assert td.db_splits(*shape, dtype) == 24
     q, db, mask, expect = edge_case(kind, *shape, dtype)
     compare(td, f"{dtype} {shape} {kind}", (q, db, mask), expect=expect)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", HAMMING_KINDS)
+@pytest.mark.parametrize("shape", HAMMING_SHAPES)
+def test_cuda_hamming_kernel_at_its_edges(cuda_device, shape, kind):
+    """The int8 wgmma Hamming kernel == nn_search_torch bit for bit (idx,
+    best, second) on (B, Nq, Ndb, words) either side of the 64-row
+    warpgroup, the 128-row tile and the 4-word chunk: random words, exact
+    duplicates across tile and slice boundaries (the lowest valid index),
+    all-masked, masked rows in the ragged last tile, one valid row (second
+    1e30); one launch per call."""
+    from chip_smoke import compare, edge_case
+
+    q, db, mask, expect = edge_case(kind, *shape, torch.uint32)
+    compare(td, f"hamming {shape} {kind}", (q, db, mask), "hamming", expect)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("shape", HAMMING_WIDE)
+def test_cuda_hamming_kernel_with_64_bit_keys(cuda_device, shape, kind):
+    """Past the 32-bit key's reach (distance field and db index need more
+    than 32 bits) the kernel ranks 64-bit keys, still bit for bit."""
+    from chip_smoke import compare, edge_case
+
+    assert td.key_shift(*shape) == 32 == td.hamming_key_shift(shape[3], shape[2])
+    q, db, mask, expect = edge_case(kind, *shape, torch.uint32)
+    compare(td, f"hamming {shape} {kind}", (q, db, mask), "hamming", expect)
 
 
 @pytest.mark.cuda

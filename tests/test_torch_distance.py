@@ -197,3 +197,89 @@ def test_3xtf32_distances_match_float64(case):
     np.testing.assert_allclose(second.numpy(), ref[..., 1], rtol=1e-5, atol=1e-4)
     clear = ref[..., 1] - ref[..., 0] > 1e-4
     np.testing.assert_array_equal(idx[clear], d64.argmin(-1)[clear])
+
+
+def _words_case(kind, words, B=3, nq=24, ndb=256, seed=11):
+    """Random packed words (B, nq, words) and (B, ndb, words) with a 20%
+    mask, then by kind: "ties" puts copies of query 0's row at db rows 127,
+    128 and 255 (127 masked: 128 must win, at distance 0, second 0);
+    "all_masked"; "one_valid" (only row ndb // 2 valid: second 1e30)."""
+    rng = np.random.default_rng(seed + words)
+    q = rng.integers(0, 2**32, size=(B, nq, words), dtype=np.uint32)
+    db = rng.integers(0, 2**32, size=(B, ndb, words), dtype=np.uint32)
+    mask = (rng.random((B, ndb)) > 0.2).astype(np.float32)
+    if kind == "ties":
+        db[:, [127, 128, 255]] = q[:, :1]
+        mask[:, [128, 255]] = 1.0
+        mask[:, 127] = 0.0
+    elif kind == "all_masked":
+        mask[:] = 0.0
+    elif kind == "one_valid":
+        mask[:] = 0.0
+        mask[:, ndb // 2] = 1.0
+    return q, db, mask
+
+
+@pytest.mark.parametrize("kind", ["masked", "ties", "all_masked", "one_valid"])
+@pytest.mark.parametrize("words", [1, 3, 8, 16])
+def test_hamming_top2_keys_matches_plain_and_tpusfm(words, kind):
+    """The kernel's integer epilogue (s32 dot, packed (distance, index)
+    keys, a top-2 on keys, decode) in its plain version: bit-equal to
+    nn_search_torch(metric="hamming") and to tpusfm's nn_search_xla (lowest
+    index of the ties), and to nn_search_pallas in interpret mode in the
+    distances (its indices where the best is unique)."""
+    q, db, mask = _words_case(kind, words)
+    qt, dbt, mt = torch.from_numpy(q), torch.from_numpy(db), torch.from_numpy(mask)
+    got = td.hamming_top2_keys(td.unpack_bits(qt), td.unpack_bits(dbt), mt)
+    plain = td.nn_search_torch(qt, dbt, mt, metric="hamming")
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+    for b in range(q.shape[0]):
+        args = (jnp.array(q[b]), jnp.array(db[b]), jnp.array(mask[b]))
+        xi, xb, xs = jd.nn_search_xla(*args, metric="hamming")
+        np.testing.assert_array_equal(got[0][b].numpy(), np.asarray(xi))
+        np.testing.assert_array_equal(got[1][b].numpy(), np.asarray(xb))
+        np.testing.assert_array_equal(got[2][b].numpy(), np.asarray(xs))
+        with pltpu.force_tpu_interpret_mode():
+            pi, pb, ps = jd.nn_search_pallas(*args, metric="hamming")
+        np.testing.assert_array_equal(got[1][b].numpy(), np.asarray(pb))
+        np.testing.assert_array_equal(got[2][b].numpy(), np.asarray(ps))
+        unique = np.asarray(pb) < np.asarray(ps)
+        np.testing.assert_array_equal(got[0][b].numpy()[unique], np.asarray(pi)[unique])
+    if kind == "ties":
+        assert (got[0][:, 0] == 128).all() and (got[1][:, 0] == 0).all()
+        assert (got[2][:, 0] == 0).all()
+    elif kind == "all_masked":
+        assert (got[0] == -1).all() and (got[1] == BIG).all() and (got[2] == BIG).all()
+    elif kind == "one_valid":
+        assert (got[0] == db.shape[1] // 2).all() and (got[2] == BIG).all()
+
+
+@pytest.mark.parametrize("words", [1, 8, 16])
+def test_hamming_top2_keys_64_bit_layout_equals_32_bit(words):
+    """The 64-bit key layout (field above, column below) ranks and decodes
+    as the 32-bit one on the same inputs, ties and masks included."""
+    q, db, mask = _words_case("ties", words, B=2, nq=40, ndb=300, seed=12)
+    args = (td.unpack_bits(torch.from_numpy(q)), td.unpack_bits(torch.from_numpy(db)),
+            torch.from_numpy(mask))
+    assert td.hamming_key_shift(words, 300) < 32
+    narrow = td.hamming_top2_keys(*args)
+    wide = td.hamming_top2_keys(*args, kshift=32)
+    for n, w in zip(narrow, wide):
+        assert torch.equal(n, w)
+
+
+def test_hamming_key_shift_fits_field_and_index():
+    """32-bit keys while the field (up to 64 W + 1) and the padded db's last
+    index fit together, else 64-bit keys (shift 32)."""
+    assert td.hamming_key_shift(8, 168_750) == 18       # the dense ORB cell
+    assert td.hamming_key_shift(8, 500) == 9            # a sparse ORB cell
+    assert td.hamming_key_shift(1, 1) == 7
+    assert td.hamming_key_shift(8, 4_194_304) == 22     # 10 + 22 bits
+    assert td.hamming_key_shift(8, 4_194_305) == 32
+    assert td.hamming_key_shift(256, 140_000) == 32     # 15 + 18 bits
+    for words in (1, 3, 8, 16, 64):
+        for ndb in (1, 127, 129, 3000, 168_750, 2_000_000):
+            s = td.hamming_key_shift(words, ndb)
+            assert s == 32 or (64 * words + 1).bit_length() + s <= 32
+            assert s == 32 or 2 ** s >= -(-ndb // 128) * 128

@@ -9,13 +9,17 @@ Three functions, one contract:
   * ``nn_search_torch`` — the plain PyTorch version (port of tpusfm's
     ``nn_search_xla``): blocked matmul + running top-2;
   * ``nn_search_cuda`` — the hand-written CUDA kernel
-    (``csrc/nn_search.cu``: wgmma on the tensor cores, f32 as 3xTF32),
-    built with nvcc at first use;
+    (``csrc/nn_search.cu``: wgmma on the tensor cores; f32 as 3xTF32, bf16
+    in one pass, Hamming as int8 products of the unpacked 0/1 bits ranked
+    on packed integer (distance, index) keys), built with nvcc at first use;
   * ``nn_search`` — dispatch on the tensors' device: CPU tensors take the
     plain version, CUDA tensors take the kernel, anything else raises.
 
 All accept an optional leading batch axis: q (B, Nq, D), db (B, Ndb, D),
 db_mask (B, Ndb).
+
+``split_tf32`` and ``hamming_top2_keys`` are the plain versions of the
+kernel's f32 split and of its Hamming epilogue, for the tests.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ _BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "tpusfm_tor
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _VARIANTS = {torch.float32: 0, torch.bfloat16: 1}
+_HAMMING = 2
 _lib = None
 
 
@@ -63,6 +68,55 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
     hi = rna(x.float().contiguous())
     return hi, rna(x.float() - hi)
+
+
+def hamming_key_shift(words: int, ndb: int) -> int:
+    """Index bits below the distance field of the kernel's Hamming keys for
+    a db of ``ndb`` rows of ``words`` words: the bits of the last index of
+    the db padded to 128-row tiles, or 32 (64-bit keys) where that and the
+    field (up to the sentinel 64 * words + 1) do not fit 32 bits together."""
+    shift = (-(-ndb // 128) * 128 - 1).bit_length()
+    return 32 if (64 * words + 1).bit_length() + shift > 32 else shift
+
+
+def hamming_top2_keys(q_bits, db_bits, db_mask=None, kshift=None):
+    """The plain version of the CUDA kernel's Hamming epilogue, used by the
+    tests. q_bits (..., Nq, 32W), db_bits (..., Ndb, 32W) of 0/1, in
+    ``unpack_bits``' order. Masked db rows are zeroed and the db is padded
+    to 128-row tiles; each column's key base is f = popc(db) + 32W (the
+    sentinel 64W + 1 where masked or padded) and its key, from the s32 dot
+    a.b, is base - (a.b << (s + 1)) with base = (f << s) | column, or
+    ((f - 2 a.b) << 32) | column for 64-bit keys (s = 32). The two least
+    keys per query are decoded: the index from the low s bits, the distance
+    from the field plus popc(q) - 32W; a sentinel field gives -1 and 1e30.
+    ``kshift`` defaults to ``hamming_key_shift``'s choice.
+
+    Returns (idx int32, best f32, second f32), each shaped q_bits.shape[:-1]."""
+    qb, dbb = q_bits.to(torch.int32), db_bits.to(torch.int32)
+    words = qb.shape[-1] // 32
+    off, sent = 32 * words, 64 * words + 1
+    ndb = dbb.shape[-2]
+    rows = -(-ndb // 128) * 128
+    if kshift is None:
+        kshift = hamming_key_shift(words, ndb)
+    valid = (_ones_mask(dbb) if db_mask is None else db_mask) != 0
+    pad = rows - ndb
+    valid = torch.nn.functional.pad(valid, (0, pad), value=False)
+    dbb = torch.nn.functional.pad(dbb, (0, 0, 0, pad)) * valid.unsqueeze(-1)
+    dot = (qb @ dbb.transpose(-1, -2)).long()
+    field = torch.where(valid, dbb.sum(-1) + off, sent).long().unsqueeze(-2)
+    col = torch.arange(rows, dtype=torch.int64)
+    if kshift < 32:
+        key = ((field << kshift) | col) - (dot << (kshift + 1))
+    else:
+        key = ((field - 2 * dot) << 32) | col
+    k1, k2 = torch.topk(key, 2, dim=-1, largest=False).values.unbind(-1)
+    v1, v2 = k1 < (sent << kshift), k2 < (sent << kshift)
+    base = (qb.sum(-1) - off).long()
+    idx = torch.where(v1, k1 & ((1 << kshift) - 1), -1).to(torch.int32)
+    best = torch.where(v1, (k1 >> kshift) + base, 0).float().masked_fill(~v1, BIG)
+    second = torch.where(v2, (k2 >> kshift) + base, 0).float().masked_fill(~v2, BIG)
+    return idx, best, second
 
 
 def _ones_mask(db):
@@ -147,34 +201,49 @@ def load_kernel():
         lib.tpusfm_nn_search.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                                          + [ctypes.c_void_p])
         lib.tpusfm_nn_search.restype = ctypes.c_int
+        lib.tpusfm_nn_key_shift.argtypes = [ctypes.c_int] * 5
+        lib.tpusfm_nn_key_shift.restype = ctypes.c_int
         log = path.with_suffix(".log")
         build_log = log.read_text() if log.exists() else ""
         _lib = lib
     return _lib
 
 
-def db_splits(B: int, nq: int, ndb: int, d: int, dtype=torch.float32) -> int:
-    """The number of db slices the L2 kernel splits a (B, nq, d) x (B, ndb, d)
+def _variant(metric: str, dtype) -> int:
+    """The kernel's variant for a metric and operand type (see nn_search.cu)."""
+    if metric == "l2":
+        if dtype not in _VARIANTS:
+            raise TypeError(f"l2 takes float32 or bfloat16, got {dtype}")
+        return _VARIANTS[dtype]
+    if metric == "hamming":
+        if dtype not in (torch.uint32, torch.int32):
+            raise TypeError(f"hamming takes packed uint32/int32 words, got {dtype}")
+        return _HAMMING
+    raise ValueError(f"unknown metric {metric!r}")
+
+
+def db_splits(B: int, nq: int, ndb: int, d: int, dtype=torch.float32,
+              metric: str = "l2") -> int:
+    """The number of db slices the kernel splits a (B, nq, d) x (B, ndb, d)
     call into on the current CUDA device (1: no merge pass)."""
     s = ctypes.c_int(0)
-    load_kernel().tpusfm_nn_workspace(B, nq, ndb, d, _VARIANTS[dtype], ctypes.byref(s))
+    load_kernel().tpusfm_nn_workspace(B, nq, ndb, d, _variant(metric, dtype), ctypes.byref(s))
     return s.value
+
+
+def key_shift(B: int, nq: int, ndb: int, words: int) -> int:
+    """The index bits of the kernel's Hamming keys for these shapes, as the
+    library computes them (32: 64-bit keys); equals hamming_key_shift."""
+    return load_kernel().tpusfm_nn_key_shift(B, nq, ndb, words, _HAMMING)
 
 
 def nn_search_cuda(q, db, db_mask=None, metric: str = "l2"):
     """NN search through the hand-written CUDA kernel; one launch covers the
-    whole leading batch axis. Same contract as nn_search_torch."""
+    whole leading batch axis (the C call runs the prep, product and merge
+    kernels on the current stream). Same contract as nn_search_torch:
+    Hamming distances are exact and the lowest index wins ties."""
     global launches
-    if metric == "l2":
-        if q.dtype not in _VARIANTS:
-            raise TypeError(f"l2 takes float32 or bfloat16, got {q.dtype}")
-        variant = _VARIANTS[q.dtype]
-    elif metric == "hamming":
-        if q.dtype not in (torch.uint32, torch.int32):
-            raise TypeError(f"hamming takes packed uint32/int32 words, got {q.dtype}")
-        variant = 2
-    else:
-        raise ValueError(f"unknown metric {metric!r}")
+    variant = _variant(metric, q.dtype)
     if db_mask is None:
         db_mask = _ones_mask(db)
     for name, t in (("q", q), ("db", db), ("db_mask", db_mask)):
