@@ -4,8 +4,9 @@ path's widths, at the kernel's edges: row counts either side of the 64-row
 warpgroup and 128-row tile, D off the 128-byte chunk, ties across db
 slices, masks; Hamming bit for bit at its edges, with 32- and 64-bit keys;
 and in its dense modes on a rendered stereo pair's dense ORB and dense SIFT
-descriptors), and the two-view slice (bf, GMS, LOGOS) and the sparse
-disparity cells on the card against the CPU.
+descriptors), and the two-view slice (bf, GMS, LOGOS), the sparse
+disparity cells, both BA solvers, the dense and CG pose graph, PnP and
+incremental multi-view SfM on the card against the CPU.
 
 This file imports no jax, so it runs where jax is absent:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -238,3 +239,108 @@ def test_cuda_two_view_gms_logos_match_cpu(cuda_device, algo):
     assert int(rg.n_matches) == int(rc.n_matches)
     assert (rg.R.cpu() - rc.R).abs().max() < 1e-3
     assert float(rg.t.cpu() @ rc.t) > 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["flat", "track_major"])
+def test_cuda_bundle_adjust_matches_cpu(cuda_device, which):
+    """Both BA solvers on the card against the CPU on a seeded synthetic
+    problem (600 tracks, 5 views): converged costs within rtol 1e-3,
+    cameras within rtol 1e-2 / atol 2e-3, under 0.5 px (phase 10's and
+    tests/test_ba.py's tolerances; the card's float atomics make iterates
+    differ in their last bits, and the free scale gauge drifts with them)."""
+    from tpusfm_torch.ba.solver import bundle_adjust, mean_reprojection_error
+    from tpusfm_torch.ba.synthetic import synth_ba_problem
+    from tpusfm_torch.ba.track_solver import bundle_adjust_tm, to_track_major
+    from tpusfm_torch.config import BaConfig
+
+    res = {}
+    for dev in ("cpu", cuda_device):
+        K, dist, cams0, X0, obs = synth_ba_problem(5, 600, device=dev)
+        if which == "flat":
+            c, p, k = bundle_adjust(cams0, X0, obs, K, dist, BaConfig(max_iters=15))
+        else:
+            c, p, k = bundle_adjust_tm(cams0, X0, to_track_major(obs, 600), K, dist,
+                                       BaConfig(max_iters=15))
+        assert float(mean_reprojection_error(c, p, obs, K, dist)) < 0.5
+        res[str(dev)] = (c.cpu(), k.cpu())
+    (cc, kc), (cg, kg) = res["cpu"], res["cuda"]
+    torch.testing.assert_close(kg[-1], kc[-1], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(cg, cc, rtol=1e-2, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_cuda_pose_graph_matches_cpu(cuda_device, solver):
+    """The dense and CG pose graph on the card against the CPU on
+    tests/test_pgo.py's 12-node noisy loop (closure trusted 10x): final
+    costs within rtol 1e-3 and positions within 5e-3 (both reach the
+    optimum; the card's float atomics change the iterates' last bits); the
+    closure halves the drift on both."""
+    from chip_smoke import noisy_loop_problem
+    from tpusfm_torch.pgo import PgoConfig, optimize_pose_graph, optimize_pose_graph_cg
+
+    res = {}
+    for dev in ("cpu", cuda_device):
+        (Rg, tg), (R0, t0), (ei, ej, Zr, Zt) = noisy_loop_problem(device=dev)
+        w = torch.ones(ei.shape[0], device=dev)
+        w[-1] = 10.0
+        if solver == "dense":
+            R, t, c = optimize_pose_graph(R0, t0, ei, ej, Zr, Zt, w, PgoConfig(max_iters=15))
+        else:
+            R, t, c = optimize_pose_graph_cg(R0, t0, ei, ej, Zr, Zt, w,
+                                             PgoConfig(max_iters=15, cg_iters=100))
+        ate = lambda x: float(((x - tg) ** 2).sum(-1).mean().sqrt())  # noqa: E731
+        assert ate(t) < 0.5 * ate(t0)
+        res[str(dev)] = (t.cpu(), c.cpu())
+    (tc, cc), (tg_, cg) = res["cpu"], res["cuda"]
+    torch.testing.assert_close(cg[-1], cc[-1], rtol=1e-3, atol=1e-7)
+    torch.testing.assert_close(tg_, tc, rtol=0, atol=5e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_pnp_matches_cpu(cuda_device):
+    """pnp_ransac with one sample table on both devices: the same inliers,
+    rvec and tvec within 1e-4."""
+    from tpusfm_torch.geometry.epipolar import draw_samples
+    from tpusfm_torch.geometry.pnp import pnp_ransac
+    from tpusfm_torch.geometry.projection import rodrigues
+
+    g = torch.Generator().manual_seed(0)
+    X = torch.rand(120, 3, generator=g) * torch.tensor([4.0, 4.0, 5.0]) + torch.tensor([-2.0, -2.0, 4.0])
+    Xc = X @ rodrigues(torch.tensor([0.05, -0.2, 0.03])).T + torch.tensor([0.3, -0.1, 0.4])
+    xn = Xc[:, :2] / Xc[:, 2:] + torch.randn(120, 2, generator=g) * 1e-3
+    xn[:30] += torch.rand(30, 2, generator=g) * 0.4 - 0.2           # outliers
+    mask = torch.rand(120, generator=g) < 0.95
+    table = draw_samples(mask, 256, 6, 0)
+    rc = pnp_ransac(X, xn, mask, 500.0, sample_idx=table)
+    rg = pnp_ransac(X.cuda(), xn.cuda(), mask.cuda(), 500.0, sample_idx=table.cuda())
+    assert torch.equal(rg[2].cpu(), rc[2]) and int(rg[3]) == int(rc[3])
+    torch.testing.assert_close(rg[0].cpu(), rc[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(rg[1].cpu(), rc[1], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_incremental_sfm_matches_cpu(cuda_device):
+    """incremental_sfm ("bf") on the synthetic 4-view sequence on the card
+    against the CPU (phase 9's check): the same tracks, observations and
+    registrations, reprojection within rtol 0.05 / atol 0.02, cameras
+    within 5e-2 (translations in units of view 1's baseline: the scale is a
+    free gauge), 10 NN-search launches (5 pairs, both directions)."""
+    import numpy as np
+
+    from chip_smoke import synthetic_sequence_features
+    from tpusfm_torch.ba.multiview import incremental_sfm
+
+    rc = incremental_sfm(*synthetic_sequence_features(device="cpu"), algo="bf")
+    before = td.launches
+    rg = incremental_sfm(*synthetic_sequence_features(device=cuda_device), algo="bf")
+    assert td.launches == before + 10
+    mc, mg = rc["metrics"], rg["metrics"]
+    for k in ("n_registered", "n_tracks", "n_obs"):
+        assert mg[k] == mc[k], k
+    assert abs(mg["reproj_error_px"] - mc["reproj_error_px"]) <= 0.02 + 0.05 * mc["reproj_error_px"]
+    cc, cg = rc["cams"], rg["cams"]
+    np.testing.assert_allclose(cg[:, :3], cc[:, :3], atol=5e-2)
+    np.testing.assert_allclose(cg[:, 3:] / np.linalg.norm(cg[1, 3:]),
+                               cc[:, 3:] / np.linalg.norm(cc[1, 3:]), atol=5e-2)

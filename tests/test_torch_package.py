@@ -34,6 +34,11 @@ _MODULES = [
     "tpusfm_torch.features.orb", "tpusfm_torch.features.dense", "tpusfm_torch.match.gms",
     "tpusfm_torch.match.kmeans", "tpusfm_torch.match.logos", "tpusfm_torch.stereo",
     "tpusfm_torch.stereo.disparity", "tpusfm_torch.sfm", "tpusfm_torch.sfm.two_view",
+    "tpusfm_torch.geometry.pnp", "tpusfm_torch.ba", "tpusfm_torch.ba.tracks",
+    "tpusfm_torch.ba.solver", "tpusfm_torch.ba.track_solver", "tpusfm_torch.ba.multiview",
+    "tpusfm_torch.ba.synthetic", "tpusfm_torch.pgo", "tpusfm_torch.pgo.se3",
+    "tpusfm_torch.pgo.graph", "tpusfm_torch.pgo.builder", "tpusfm_torch.utils.checkpoint",
+    "tpusfm_torch.utils.traj", "tpusfm_torch.utils.jacobian",
 ]
 
 
@@ -49,6 +54,23 @@ def test_importing_the_port_does_not_import_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode == 0, r.stderr
+
+
+def test_no_source_of_the_port_or_chip_smoke_imports_jax_or_tpusfm():
+    """Imports inside functions too: every import statement of every module
+    of the port and of chip_smoke.py names neither jax nor tpusfm."""
+    import ast
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    files = sorted((root / "tpusfm_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            bad += [(f.name, n) for n in names if n.split(".")[0] in ("jax", "jaxlib", "tpusfm")]
+    assert len(files) > 40 and not bad, bad
 
 
 @pytest.mark.parametrize("name", ["SiftConfig", "OrbConfig", "MatchConfig", "GmsConfig",
@@ -109,13 +131,30 @@ def test_intrinsics_ideal_and_conversion():
     assert a.K.dtype == torch.float32 and tuple(a.dist.shape) == (5,)
 
 
-@pytest.mark.parametrize("entry", ["ideal", "intrinsics", "features", "sample_table"])
+@pytest.mark.parametrize("entry", ["ideal", "intrinsics", "features", "sample_table",
+                                   "pnp_table", "observations", "ba_inputs", "pose_graph",
+                                   "synth_ba_problem"])
 def test_entry_points_default_to_the_card(entry):
-    """Without ``device=``, intrinsics and converted state go to the card;
-    where there is no CUDA device that raises, never a silent CPU tensor."""
-    from tpusfm_torch.utils.convert import sample_table_from_numpy
+    """Without ``device=``, intrinsics, converted state and synthetic
+    problems go to the card; where there is no CUDA device that raises,
+    never a silent CPU tensor."""
+    from types import SimpleNamespace
+
+    from tpusfm_torch.ba.synthetic import synth_ba_problem
+    from tpusfm_torch.utils.convert import (ba_inputs_from_numpy, observations_from,
+                                            pnp_sample_table_from_numpy, pose_graph_from_numpy,
+                                            sample_table_from_numpy)
 
     make = {
+        "pnp_table": lambda: pnp_sample_table_from_numpy(np.zeros((4, 6), np.int64)),
+        "observations": lambda: observations_from(SimpleNamespace(
+            xy=np.zeros((3, 2)), cam=np.zeros(3), pt=np.zeros(3), mask=np.ones(3, bool))).xy,
+        "ba_inputs": lambda: ba_inputs_from_numpy(np.zeros((2, 6)), np.zeros((3, 3)), np.eye(3),
+                                                  np.zeros(5))[0],
+        "pose_graph": lambda: pose_graph_from_numpy(np.tile(np.eye(3), (2, 1, 1)), np.zeros((2, 3)),
+                                                    [0], [1], np.eye(3)[None], np.zeros((1, 3)),
+                                                    [1.0])[0],
+        "synth_ba_problem": lambda: synth_ba_problem(3, 10)[2],
         "ideal": lambda: CameraIntrinsics.ideal(1.0, 1.0, 0.0, 0.0).K,
         "intrinsics": lambda: intrinsics_from_numpy(np.eye(3), np.zeros(5)).K,
         "features": lambda: features_from_numpy(np.zeros((2, 2)), np.zeros(2), np.zeros(2),

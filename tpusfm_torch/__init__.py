@@ -11,10 +11,16 @@ Package map:
   features/  scale space, SIFT (fast-descriptor path), ORB, dense SIFT
   match/     brute-force matching with the reference's prune rules, GMS,
              k-means, LOGOS
-  geometry/  undistortion, five-point RANSAC, recoverPose, triangulation
+  geometry/  undistortion, five-point RANSAC, recoverPose, triangulation,
+             PnP RANSAC
   sfm/       two-view SfM over one pair or a batch of pairs
+  ba/        feature tracks, bundle adjustment (flat and track-major LM with
+             Schur reduction), incremental multi-view SfM, synthetic problems
+  pgo/       SE(3) ops, pose-graph LM (dense and matrix-free CG), the
+             sequence graph builder
   stereo/    match-based disparity and the reference's RMS benchmark grid
-  utils/     padding helpers, conversion of shared state from numpy
+  utils/     padding helpers, conversion of shared state from numpy,
+             row-wise forward-mode Jacobians, checkpoints, trajectory ATE
 """
 
 __version__ = "0.1.0"

@@ -50,19 +50,26 @@ def sampson_error(E, x1, x2):
     return num / torch.clamp(den, min=1e-12)
 
 
-def sample_table(mask, cfg: RansacConfig = RansacConfig()):
-    """(H, S) RANSAC sample indices, S distinct per row, drawn with
-    probability proportional to ``mask`` by Gumbel top-k (what
+def draw_samples(mask, n_hypotheses: int, size: int, seed: int):
+    """(n_hypotheses, size) sample indices, distinct within a row, drawn
+    with probability proportional to ``mask`` by Gumbel top-k (what
     jax.random.choice(replace=False, p=...) does), from a torch.Generator
-    on the mask's device seeded with cfg.seed. With fewer than S valid
-    entries the remainder are masked ones, which scoring ignores."""
+    on the mask's device seeded with ``seed``. With fewer than ``size``
+    valid entries the remainder are masked ones, which scoring ignores."""
     n = mask.shape[-1]
-    s = 5 if cfg.solver == "five_point" else cfg.sample_size
-    gen = torch.Generator(device=mask.device).manual_seed(cfg.seed)
-    u = torch.rand((cfg.n_hypotheses, n), generator=gen, device=mask.device)
+    gen = torch.Generator(device=mask.device).manual_seed(seed)
+    u = torch.rand((n_hypotheses, n), generator=gen, device=mask.device)
     p = mask.float() / torch.clamp(mask.float().sum(), min=1.0)
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-20)))
-    return torch.topk(torch.log(p) + gumbel, s, dim=-1).indices
+    return torch.topk(torch.log(p) + gumbel, size, dim=-1).indices
+
+
+def sample_table(mask, cfg: RansacConfig = RansacConfig()):
+    """(H, S) RANSAC sample table for find_essential_ransac (S = 5 for the
+    five-point solver, cfg.sample_size otherwise), from draw_samples seeded
+    with cfg.seed."""
+    s = 5 if cfg.solver == "five_point" else cfg.sample_size
+    return draw_samples(mask, cfg.n_hypotheses, s, cfg.seed)
 
 
 def find_essential_ransac(x1n, x2n, mask, focal, cfg: RansacConfig = RansacConfig(),

@@ -2,9 +2,10 @@
 
 The pipeline has no learned weights. What tpusfm and the port must share to
 compute the same thing is: the config dataclasses, the camera intrinsics,
-the features (keypoints and descriptors), the RANSAC sample table and, for
-tests that carry one stage's result into the next, match sets, visual-word
-assignments and k-means vocabularies. These
+the features (keypoints and descriptors), the RANSAC and PnP sample tables,
+bundle-adjustment problems (observation tables, cameras, points) and pose
+graphs and, for tests that carry one stage's result into the next, match
+sets, visual-word assignments and k-means vocabularies. These
 functions build the port's objects from numpy arrays, from objects whose
 fields convert with ``np.asarray`` (tpusfm's containers included), or from
 config dataclasses via ``dataclasses.asdict``.
@@ -16,6 +17,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpusfm_torch.ba.track_solver import TrackObservations
+from tpusfm_torch.ba.tracks import Observations
 from tpusfm_torch.types import CameraIntrinsics, Features, Keypoints, Matches
 
 
@@ -94,3 +97,37 @@ def words_from(words, device="cuda") -> torch.Tensor:
 def sample_table_from_numpy(idx, device="cuda") -> torch.Tensor:
     """An (H, S) RANSAC sample table for find_essential_ransac(sample_idx=)."""
     return tensor(idx, device, torch.int64)
+
+
+def pnp_sample_table_from_numpy(idx, device="cuda") -> torch.Tensor:
+    """An (H, 6) PnP sample table for pnp_ransac(sample_idx=)."""
+    return tensor(idx, device, torch.int64)
+
+
+def observations_from(obs, device="cuda"):
+    """ba.tracks.Observations from any object with tpusfm's field layout."""
+    return Observations(xy=tensor(obs.xy, device, torch.float32),
+                        cam=tensor(obs.cam, device, torch.int32),
+                        pt=tensor(obs.pt, device, torch.int32),
+                        mask=tensor(obs.mask, device, torch.bool))
+
+
+def track_observations_from(tobs, device="cuda"):
+    """ba.track_solver.TrackObservations from tpusfm's field layout."""
+    return TrackObservations(xy=tensor(tobs.xy, device, torch.float32),
+                             cam=tensor(tobs.cam, device, torch.int32),
+                             mask=tensor(tobs.mask, device, torch.bool))
+
+
+def ba_inputs_from_numpy(cams, points, K, dist, device="cuda"):
+    """The bundle adjustment's inputs as f32 tensors: (cams (V, 6) [rvec |
+    tvec], points (P, 3), K (3, 3), dist (5,))."""
+    return tuple(tensor(a, device, torch.float32) for a in (cams, points, K, dist))
+
+
+def pose_graph_from_numpy(R, t, ei, ej, Zr, Zt, w, device="cuda"):
+    """A pose graph's node poses and edges as tensors: (R (N, 3, 3), t (N, 3),
+    ei, ej (E,) int32, Zr (E, 3, 3), Zt (E, 3), w (E,)). Its PgoConfig
+    converts with config_from."""
+    R, t, Zr, Zt, w = (tensor(a, device, torch.float32) for a in (R, t, Zr, Zt, w))
+    return R, t, tensor(ei, device, torch.int32), tensor(ej, device, torch.int32), Zr, Zt, w
