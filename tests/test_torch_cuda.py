@@ -6,7 +6,8 @@ slices, masks; Hamming bit for bit at its edges, with 32- and 64-bit keys;
 and in its dense modes on a rendered stereo pair's dense ORB and dense SIFT
 descriptors), and the two-view slice (bf, GMS, LOGOS), the sparse
 disparity cells, both BA solvers, the dense and CG pose graph, PnP and
-incremental multi-view SfM on the card against the CPU.
+incremental multi-view SfM, StereoBM, the median blur, portrait mode (f32
+and bf16) and calibration on the card against the CPU.
 
 This file imports no jax, so it runs where jax is absent:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -344,3 +345,73 @@ def test_cuda_incremental_sfm_matches_cpu(cuda_device):
     np.testing.assert_allclose(cg[:, :3], cc[:, :3], atol=5e-2)
     np.testing.assert_allclose(cg[:, 3:] / np.linalg.norm(cg[1, 3:]),
                                cc[:, 3:] / np.linalg.norm(cc[1, 3:]), atol=5e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_stereo_bm_matches_cpu(cuda_device):
+    """StereoBMConfig() on a 200x150 render: integer disparities and valid
+    masks equal to the CPU's on >= 99.9% of the pixels (the SAD costs are
+    f32 cumsums, which add in another order on the card)."""
+    from chip_smoke import render_stereo_pair
+    from tpusfm_torch.stereo import stereo_bm
+
+    left, right, _ = (torch.from_numpy(a) for a in render_stereo_pair(150, 200))
+    cd, cv = stereo_bm(left, right)
+    gd, gv = (t.cpu() for t in stereo_bm(left.to(cuda_device), right.to(cuda_device)))
+    assert (torch.floor(gd + 0.5) == torch.floor(cd + 0.5)).float().mean() >= 0.999
+    assert (gv == cv).float().mean() >= 0.999 and gv.float().mean() > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 3])
+def test_cuda_median_blur_is_bit_equal_to_cpu(cuda_device, channels):
+    from chip_smoke import render_stereo_rgb
+    from tpusfm_torch.stereo import median_blur
+
+    img = torch.from_numpy(render_stereo_rgb(150, 200)[0])
+    img = img[..., 0].contiguous() if channels == 1 else img
+    assert torch.equal(median_blur(img.to(cuda_device), 7).cpu(), median_blur(img, 7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_portrait_matches_cpu(cuda_device, dtype):
+    """create_portrait_mode at 160x120, threshold 25, f32 and the bf16
+    opt-in: one NN-search launch, foreground masks equal to the CPU's on
+    >= 99.5% of the pixels, the portrait within 1e-6 where they agree."""
+    from chip_smoke import render_stereo_rgb
+    from tpusfm_torch.stereo import create_portrait_mode
+
+    left, right, _, _ = (torch.from_numpy(a) for a in render_stereo_rgb(120, 160))
+    co, cf, _ = create_portrait_mode(left, right, threshold=25.0, dtype=dtype)
+    before = td.launches
+    go, gf, _ = (t.cpu() for t in create_portrait_mode(
+        left.to(cuda_device), right.to(cuda_device), threshold=25.0, dtype=dtype))
+    assert td.launches == before + 1
+    agree = gf == cf
+    assert agree.float().mean() >= 0.995
+    torch.testing.assert_close(go[agree], co[agree], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_calibrate_camera_matches_cpu(cuda_device):
+    """Four seeded board photos at 504x378: the corners found on the card
+    within 1e-3 px of the CPU's, and calibrate_camera's K on the card
+    within rtol 1e-3 of the CPU's."""
+    import numpy as np
+
+    from chip_smoke import render_board_views
+    from tpusfm_torch.calib import board_object_points, calibrate_camera, find_chessboard_corners
+
+    views, _, _ = render_board_views(n_views=4, tilt=0.5)
+    pts = []
+    for v in views:
+        c, ok = find_chessboard_corners(torch.from_numpy(v))
+        g, gok = find_chessboard_corners(torch.from_numpy(v).to(cuda_device))
+        assert ok and gok and np.abs(g - c).max() < 1e-3
+        pts.append(c)
+    obj = board_object_points(6, 9)
+    ci, _, _, crms = calibrate_camera(obj, np.stack(pts), (504, 378), device="cpu")
+    gi, _, _, grms = calibrate_camera(obj, np.stack(pts), (504, 378), device=cuda_device)
+    torch.testing.assert_close(gi.K.cpu(), ci.K, rtol=1e-3, atol=1e-3)
+    assert gi.K.device.type == "cuda" and abs(grms - crms) <= 1e-3 * crms + 1e-4

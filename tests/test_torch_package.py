@@ -38,7 +38,10 @@ _MODULES = [
     "tpusfm_torch.ba.solver", "tpusfm_torch.ba.track_solver", "tpusfm_torch.ba.multiview",
     "tpusfm_torch.ba.synthetic", "tpusfm_torch.pgo", "tpusfm_torch.pgo.se3",
     "tpusfm_torch.pgo.graph", "tpusfm_torch.pgo.builder", "tpusfm_torch.utils.checkpoint",
-    "tpusfm_torch.utils.traj", "tpusfm_torch.utils.jacobian",
+    "tpusfm_torch.utils.traj", "tpusfm_torch.utils.jacobian", "tpusfm_torch.utils.build",
+    "tpusfm_torch.native", "tpusfm_torch.stereo.filters", "tpusfm_torch.stereo.block_matching",
+    "tpusfm_torch.stereo.portrait", "tpusfm_torch.calib", "tpusfm_torch.calib.zhang",
+    "tpusfm_torch.calib.chessboard",
 ]
 
 
@@ -133,7 +136,7 @@ def test_intrinsics_ideal_and_conversion():
 
 @pytest.mark.parametrize("entry", ["ideal", "intrinsics", "features", "sample_table",
                                    "pnp_table", "observations", "ba_inputs", "pose_graph",
-                                   "synth_ba_problem"])
+                                   "synth_ba_problem", "calibrate_camera"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device=``, intrinsics, converted state and synthetic
     problems go to the card; where there is no CUDA device that raises,
@@ -161,12 +164,27 @@ def test_entry_points_default_to_the_card(entry):
                                                 np.zeros(2), np.ones(2, bool),
                                                 np.zeros((2, 4))).desc,
         "sample_table": lambda: sample_table_from_numpy(np.zeros((4, 5), np.int64)),
+        "calibrate_camera": lambda: _calibrate_three_views().K,
     }[entry]
     if torch.cuda.is_available():
         assert make().device.type == "cuda"
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             make()
+
+
+def _calibrate_three_views():
+    """calibrate_camera, with no device given, on three exact views of the
+    6x9 board."""
+    from tpusfm_torch.calib import board_object_points, calibrate_camera
+    from tpusfm_torch.geometry.projection import project_points
+
+    obj = board_object_points(6, 9)
+    K = torch.tensor([[400.0, 0, 250], [0, 400, 190], [0, 0, 1]])
+    rv = torch.tensor([[0.3, 0.1, 0.0], [-0.2, 0.3, 0.1], [0.1, -0.3, -0.1]])
+    tv = torch.tensor([[-4.0, -2.5, 15.0], [-4.0, -2.5, 14.0], [-4.0, -2.5, 16.0]])
+    views = project_points(torch.from_numpy(obj), rv, tv[:, None], K).numpy()
+    return calibrate_camera(obj, views, (504, 378), refine_iters=2)[0]
 
 
 def test_dataset_and_imread(tmp_path):
@@ -186,14 +204,17 @@ def test_dataset_and_imread(tmp_path):
 
 
 def test_packaging_ships_the_ports_data_and_a_torch_extra():
-    """The BRIEF pattern travels with the port (its own copy, byte-equal to
-    tpusfm's), and pyproject installs it and names the torch extra."""
+    """The BRIEF pattern and the CCL source travel with the port (its own
+    copies: the pattern byte-equal to tpusfm's here, the CCL code in
+    test_torch_stereo.py), and pyproject installs them and names the torch
+    extra."""
     import tomllib
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, "pyproject.toml"), "rb") as fh:
         cfg = tomllib.load(fh)
-    assert "features/*.npy" in cfg["tool"]["setuptools"]["package-data"]["tpusfm_torch"]
+    data = cfg["tool"]["setuptools"]["package-data"]["tpusfm_torch"]
+    assert "features/*.npy" in data and "csrc/*.cpp" in data
     assert any(r.startswith("torch") for r in cfg["project"]["optional-dependencies"]["torch"])
     with open(os.path.join(root, "tpusfm_torch", "features", "_brief_pattern.npy"), "rb") as a, \
             open(os.path.join(root, "tpusfm", "features", "_brief_pattern.npy"), "rb") as b:
@@ -207,3 +228,23 @@ def test_packed_words_convert_bit_for_bit():
                             np.ones(1, bool), words, device="cpu")
     assert f.desc.dtype == torch.uint32
     np.testing.assert_array_equal(f.desc.view(torch.int32).numpy().view(np.uint32), words)
+
+
+def test_native_library_builds_under_the_ports_build_directory():
+    """The CCL library builds from the port's own csrc/ccl.cpp into
+    build/tpusfm_torch/ under a name keyed by the source's hash (not
+    tpusfm's build/libtpusfm_native.so), and loads."""
+    import pathlib
+
+    from tpusfm_torch import native
+    from tpusfm_torch.utils.build import BUILD_DIR
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    path = native.library_path()
+    assert BUILD_DIR == root / "build" / "tpusfm_torch"
+    assert path.parent == BUILD_DIR and path.name.startswith("ccl_") and path.exists()
+    assert native.library_path() == path
+    labels, n, areas = native.connected_components(np.eye(4, dtype=bool), 8)
+    assert n == 1 and areas.tolist() == [4]
+    with pytest.raises(ValueError):
+        native.connected_components(np.zeros((2, 2, 2)))

@@ -184,3 +184,32 @@ def test_build_sequence_graph_matches_tpusfm():
     for a, ja in zip(arrays, jarrays):
         assert tuple(a.shape) == tuple(ja.shape)
     np.testing.assert_array_equal(arrays[0].numpy(), np.asarray(jarrays[0]))
+
+
+def test_cg_pose_graph_at_1024_nodes_matches_tpusfm():
+    """tests/test_pgo.py:157's 1,024-node loop (chords every 64 and 256
+    nodes, their config: 20 LM iterations of 224 CG steps, Huber 1e4), both
+    packages' CG in float64: the port ends within that test's 15% of
+    tpusfm's final cost (they agree to 1e-6 here) and meets its criteria,
+    cost under 2% of the start and ATE under 80% of the odometry's. In f32
+    tpusfm stalls higher (3.15 against 2.32: its se3_log near the identity,
+    ROADMAP Queue 3), and both stop far above the dense optimum (about
+    0.03): the block-Jacobi CG carries information about one hop a step."""
+    n = 1024
+    (Rg, tg), (R0, t0), (ei, ej, Zr, Zt) = noisy_loop_problem(n=n, seed=7, noise=0.01,
+                                                              chords=(64, 256), device="cpu")
+    w = torch.ones(ei.shape[0])
+    w[n - 1:] = 5.0
+    tin = [a.double() if a.is_floating_point() else a for a in (R0, t0, ei, ej, Zr, Zt, w)]
+    R, t, c = graph.optimize_pose_graph_cg(*tin, cfg=PgoConfig(max_iters=20, cg_iters=224,
+                                                                huber_delta=1e4))
+    with jax.enable_x64(True):
+        jin = [jnp.asarray(a.numpy()) for a in tin]
+        _, jt, jc = jgraph.optimize_pose_graph_cg(
+            *jin, cfg=JaxPgoConfig(max_iters=20, cg_iters=224, huber_delta=1e4))
+        jt, jc = np.asarray(jt), np.asarray(jc)
+    assert abs(float(c[-1]) - jc[-1]) < 0.15 * jc[-1] + 1e-3
+    np.testing.assert_allclose(c.numpy(), jc, rtol=1e-4)
+    ate = lambda x: float(np.sqrt(((_np(x) - _np(tg)) ** 2).sum(-1).mean()))  # noqa: E731
+    assert float(c[-1]) < 0.02 * float(c[0]) and jc[-1] < 0.02 * jc[0]
+    assert ate(t) < 0.8 * ate(t0) and ate(jt) < 0.8 * ate(t0)

@@ -24,13 +24,12 @@ kernel's f32 split and of its Hamming epilogue, for the tests.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import pathlib
-import subprocess
-import tempfile
 
 import torch
+
+from tpusfm_torch.utils.build import BUILD_DIR as _BUILD_DIR, build_library
 
 BIG = 1e30
 
@@ -40,7 +39,6 @@ launches = 0
 build_log = ""
 
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "nn_search.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "tpusfm_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _VARIANTS = {torch.float32: 0, torch.bfloat16: 1}
@@ -161,33 +159,13 @@ def nn_search_torch(q, db, db_mask=None, metric: str = "l2", block: int = 1024):
 
 
 def _build() -> pathlib.Path:
-    """Compile csrc/nn_search.cu with nvcc into build/tpusfm_torch/, keyed by
-    the hash of the source and flags; reuse the library when it exists.
-    nvcc's output goes beside it (.log)."""
+    """Compile csrc/nn_search.cu with nvcc into build/tpusfm_torch/ (see
+    utils/build.py); nvcc's output goes beside the library (.log)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"nn_search_{key}.so"
-    if out.exists():
-        return out
     if CUDA_HOME is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        done = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, str(_SRC)], check=True,
-                              capture_output=True, text=True)
-        out.with_suffix(".log").write_text(done.stdout + done.stderr)
-        os.replace(tmp, out)
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed building {_SRC}:\n{e.stderr}") from e
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+    return build_library(_SRC, os.path.join(CUDA_HOME, "bin", "nvcc"), _NVCC_FLAGS, "nn_search")
 
 
 def load_kernel():

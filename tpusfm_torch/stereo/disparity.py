@@ -85,15 +85,23 @@ def dense_orb_features(img) -> Features:
 
 
 def dense_raw_match(f1: Features, f2: Features, metric: str, cfg: MatchConfig,
-                    chunk: int = DENSE_CHUNK) -> Matches:
+                    chunk: int = DENSE_CHUNK, dtype=torch.float32) -> Matches:
     """Unpruned dense NN matching, ``chunk`` queries per NN-search call: the
     chunk bounds the kernel's workspace and temporaries, while the database
-    streams from memory the same either way. Descriptors stay f32 for L2
-    (f32 in, f32 math)."""
-    n1 = f1.desc.shape[0]
+    streams from memory the same either way. L2 descriptors stay f32 by
+    default (f32 in, f32 math); ``dtype=torch.bfloat16`` is the caller's
+    opt-in to the cast tpusfm makes on its own chip
+    (tpusfm/stereo/disparity.py:105-107), the kernel's one-pass bf16 mode.
+    Hamming takes its packed words as they are."""
+    d1, d2 = f1.desc, f2.desc
+    if dtype != torch.float32:
+        if (metric, dtype) != ("l2", torch.bfloat16):
+            raise ValueError(f"dtype={dtype} is an opt-in for l2 (bfloat16), not {metric!r}")
+        d1, d2 = d1.to(dtype), d2.to(dtype)
+    n1 = d1.shape[0]
     idxs, bests = [], []
     for q0 in range(0, n1, chunk):
-        idx, best, _ = nn_search(f1.desc[q0:q0 + chunk], f2.desc, f2.kpts.mask, metric=metric)
+        idx, best, _ = nn_search(d1[q0:q0 + chunk], d2, f2.kpts.mask, metric=metric)
         idxs.append(idx)
         bests.append(best)
     idx, best = torch.cat(idxs), torch.cat(bests)
