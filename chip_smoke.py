@@ -52,7 +52,20 @@ SIFT, GMS and LOGOS under torch.profiler;
      bf16 opt-in (one launch each; the foreground against the scene's), the
      kernel in bf16 at its shape, the card against the CPU at 160x120;
  14. the calibrate path: ten seeded 504x378 board photos, detection and
-     calibrate_camera against the known K and the CPU.
+     calibrate_camera against the known K and the CPU;
+ 15. the CLI on the card: the rendered scenes written as PNGs under
+     build/tpusfm_torch/cli_smoke/ with the port's codec, the eight working
+     subcommands through tpusfm_torch.cli.main at their own defaults (ms
+     and launches each; sfm's pose, sfm-seq 6/6 under 1 px, pose-graph's
+     ATE, calibrate 10/10, the files of stereo, portrait, disparity and
+     match), sfm once more as `python -m tpusfm_torch.cli sfm`, and bench's
+     non-zero exit;
+ 16. --devices 2 on the one card: sfm-seq, pose-graph and the dense
+     disparity cells through torch.distributed.run (two ranks sharing
+     cuda:0 over gloo) against phase 15's single-device files; then a
+     world-size-1 NCCL group: sharded_bundle_adjust at 8,192 / 6,
+     ring_nn_search at 1 x 168750 x 168750 x 128 and parallel_pair_match on
+     phase 5's step, each against and timed beside its unsharded call.
 Every time is printed beside the card's name and power limit (the first
 line). The line before the last is the kernels' JSON record (before it,
 one with the two-view, disparity, stage, multi-view, stereo, portrait and
@@ -60,9 +73,11 @@ calibration results); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import functools
 import json
 import re
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -663,6 +678,42 @@ def render_board_views(n_views=10, h=378, w=504, rows=6, cols=9, tilt=0.35, seed
     return np.array(views, np.float32), rvecs, tvecs
 
 
+def write_cli_inputs(root, pair, seq, stereo_hw=(375, 450), board_hw=(378, 504), n_boards=10):
+    """The rendered scenes as the files the CLI reads, written with the
+    port's PNG codec under ``root``: ``pair`` = (g1, g2, focal) of a
+    two-view render, ``seq`` = (views, focal, centres) of render_sequence,
+    the stereo pair with its ground truth in the reference's 8-bit encoding
+    (gt = 4 D, read back by run_disparity_benchmark at ratio 4), the colour
+    stereo pair and ``n_boards`` board photos at ``board_hw``; and
+    calib.npz with the pair's K (focal 0.8255 w, centred) at its size, which
+    the CLI's --calib rescales to the sequence's width. Returns the paths."""
+    import os
+
+    from tpusfm_torch.io import imwrite
+
+    os.makedirs(root, exist_ok=True)
+
+    def put(name, img):
+        path = os.path.join(root, name)
+        imwrite(path, img)
+        return path
+
+    (g1, g2, f), (views, _, _) = pair, seq
+    h, w = g1.shape
+    out = {"pair": [put("pair1.png", g1), put("pair2.png", g2)],
+           "seq": [put(f"seq{k}.png", v) for k, v in enumerate(views)]}
+    left, right, gt = render_stereo_pair(*stereo_hw)
+    out["stereo"] = [put("left.png", left), put("right.png", right), put("gt.png", gt)]
+    lrgb, rrgb, _, _ = render_stereo_rgb(*stereo_hw)
+    out["rgb"] = [put("left_rgb.png", lrgb), put("right_rgb.png", rrgb)]
+    boards, _, _ = render_board_views(n_boards, *board_hw, tilt=0.5)
+    out["boards"] = [put(f"board{k}.png", b) for k, b in enumerate(boards)]
+    out["calib"] = os.path.join(root, "calib.npz")
+    np.savez(out["calib"], K=np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32),
+             dist=np.zeros(5, np.float32), image_size=np.array([w, h]))
+    return out
+
+
 def check_pose(R, t, n_inliers, what):
     R, t = R.double().cpu(), t.double().cpu()
     ok = ((R - torch.eye(3, dtype=R.dtype)).abs().max() < 0.05 and abs(float(t[0])) > 0.98
@@ -958,6 +1009,23 @@ def kernel_profile(fn) -> tuple[int, float]:
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not e.name.startswith(("Memcpy", "Memset"))]
     return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+
+def device_breakdown(fn) -> dict:
+    """One call of fn under torch.profiler: its device activities and
+    their ms, and the part of both in NCCL kernels."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    nccl = [e for e in dev if "nccl" in e.name.lower()]
+    return {"activities": len(dev), "device_ms": sum(e.time_range.elapsed_us() for e in dev) / 1e3,
+            "nccl_activities": len(nccl),
+            "nccl_ms": sum(e.time_range.elapsed_us() for e in nccl) / 1e3}
 
 
 def _ba_run(run, iters, smi, name):
@@ -1498,6 +1566,325 @@ def check_calibration(smi) -> dict:
     return out
 
 
+CLI_ROOT = "build/tpusfm_torch/cli_smoke"        # gitignored, under the checkout
+
+
+def _cli(cli, distance, name, argv, smi, timings, launches):
+    """One in-process CLI run on the card: its stdout (echoed), ms and
+    NN-search launches, recorded under ``name``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    before = distance.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    timings[name], launches[name] = ms, distance.launches - before
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    print(f"[{smi}] cli {name}: {ms:.1f} ms, {launches[name]} nn_search launches", flush=True)
+    return text
+
+
+def _printed_pose(text):
+    """(R, t, inliers) from the sfm subcommand's printout."""
+    lines = text.splitlines()
+    i = lines.index("R:")
+    R = np.array([[float(v) for v in lines[i + k].strip(" []").split()] for k in (1, 2, 3)])
+    t = np.array([float(v) for v in lines[i + 4].split(":")[1].strip(" []").split()])
+    inliers = int(text.split("inliers=")[1].split()[0])
+    return torch.tensor(R), torch.tensor(t), inliers
+
+
+def _printed_cells(text):
+    cells = {}
+    for line in text.splitlines():
+        if "RMS=" in line:
+            alg, density = line.replace(":", " ").split()[:2]
+            cells[f"{alg}_{density}"] = {"rms": float(line.split("RMS=")[1].split()[0]),
+                                         "count": int(line.split("count=")[1].split()[0])}
+    return cells
+
+
+def check_cli(distance, smi, pair) -> dict:
+    """Phase 15: the CLI on the card, one device. The rendered scenes go to
+    PNGs under CLI_ROOT with the port's codec (phase 5's 2016x1512 pair,
+    the 6-view 756x567 rail, the 450x375 stereo pair with its ground truth,
+    its colour version, ten 504x378 board photos, a calib npz); the eight
+    working subcommands run through tpusfm_torch.cli.main at their own
+    defaults (--max-size, --max-features; portrait at --threshold 25, as
+    phase 13), and sfm once more as `python -m tpusfm_torch.cli sfm`. Checks:
+    sfm's pose, sfm-seq 6/6 under 1 px, pose-graph's ATE against the
+    sfm-seq npz, calibrate 10/10 with K within 5 px, the stereo, portrait,
+    disparity and match files; bench exits non-zero. Returns ms and
+    launches per subcommand and the outputs phase 16 compares with."""
+    import os
+
+    from tpusfm_torch.cli import __main__ as cli
+
+    t0 = time.perf_counter()
+    inp = write_cli_inputs(f"{CLI_ROOT}/in", pair, render_sequence(SEQ_VIEWS, SEQ_H, SEQ_W))
+    write_s = time.perf_counter() - t0
+    out, timings, launches = f"{CLI_ROOT}/out1", {}, {}
+    seq = ["--images", *inp["seq"], "--calib", inp["calib"]]
+    left, right, gt = inp["stereo"]
+    run = functools.partial(_cli, cli, distance, smi=smi, timings=timings, launches=launches)
+
+    pair_args = ["--image1", inp["pair"][0], "--image2", inp["pair"][1]]
+    text = run("sfm", ["sfm", *pair_args, "--calib", inp["calib"], "--out", f"{out}/sfm"])
+    R, t, n_in = _printed_pose(text)
+    check_pose(R, t, n_in, "cli sfm (logos, 504x378)")
+    text = run("sfm_seq", ["sfm-seq", *seq, "--out", f"{out}/seq"])
+    reg = int(text.split("n_registered: ")[1].split()[0])
+    reproj = float(text.split("reproj_error_px: ")[1].split()[0])
+    if reg != SEQ_VIEWS or not reproj < 1.0:
+        raise AssertionError(f"cli sfm-seq: registered {reg}/{SEQ_VIEWS} at {reproj} px")
+    run("pose_graph", ["pose-graph", *seq, "--ref-traj", f"{out}/seq/reconstruction.npz",
+                       "--out", f"{out}/pg"])
+    pg = dict(np.load(f"{out}/pg/pose_graph.npz"))
+    if not {"ate_before", "ate_after", "centers_pgo", "R_pgo"} <= set(pg):
+        raise AssertionError(f"cli pose-graph: pose_graph.npz has {sorted(pg)}")
+    text = run("calibrate", ["calibrate", "--images", *inp["boards"], "--out", f"{out}/calib.npz"])
+    K = np.load(f"{out}/calib.npz")["K"]
+    if text.count(": found") != 10 or np.abs(K - BOARD_K).max() >= 5.0:
+        raise AssertionError(f"cli calibrate: {text.count(': found')}/10 boards, K {K.tolist()}")
+    run("stereo", ["stereo", "--left", left, "--right", right, "--out", f"{out}/stereo"])
+    run("portrait", ["portrait", "--left", inp["rgb"][0], "--right", inp["rgb"][1],
+                     "--threshold", "25", "--out", f"{out}/portrait"])
+    stereo = ["--left", left, "--right", right, "--gt", gt, "--out", f"{out}/disparity"]
+    sparse = _printed_cells(run("disparity", ["disparity", *stereo]))
+    dense = _printed_cells(run("disparity_dense", ["disparity", *stereo, "--density", "dense",
+                                                   "--algorithms", "sift", "gms", "orb"]))
+    run("match", ["match", *pair_args, "--out", f"{out}/match"])
+    report = json.load(open(f"{out}/match/match_report.json"))
+    files = [f"{out}/stereo/stereo_bm.png", f"{out}/portrait/portrait.png",
+             f"{out}/portrait/portrait_fg.png", f"{out}/sfm/two_view.ply",
+             f"{out}/sfm/two_view_matches.png", f"{out}/seq/reconstruction.ply"] + [
+        f"{out}/match/matches_{a}_orig.png" for a in ("bf", "gms", "logos")] + [
+        f"{out}/disparity/disparity_{c}_RMS.png" for c in list(sparse) + list(dense)]
+    missing = [f for f in files if not os.path.exists(f)]
+    if missing or len(sparse) != 4 or len(dense) != 3 or "bf_orig_matches" not in report:
+        raise AssertionError(f"cli: missing outputs {missing}, cells {sorted(sparse)} "
+                             f"{sorted(dense)}, report {sorted(report)}")
+    bench = subprocess.run([sys.executable, "-m", "tpusfm_torch.cli", "bench"],
+                           capture_output=True, text=True, timeout=300)
+    if bench.returncode == 0 or "item 6" not in bench.stderr:
+        raise AssertionError(f"cli bench: exit {bench.returncode}, {bench.stderr!r}")
+    log = os.path.abspath(f"{CLI_ROOT}/launches_sfm.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    t0 = time.perf_counter()
+    sub = subprocess.run([sys.executable, "-m", "tpusfm_torch.cli", "sfm", *pair_args, "--calib",
+                          inp["calib"], "--out", f"{CLI_ROOT}/out_sub"], capture_output=True, text=True,
+                         timeout=600, env={**os.environ, "TPUSFM_LAUNCH_LOG": log})
+    sub_s = time.perf_counter() - t0
+    if sub.returncode != 0:
+        raise AssertionError(f"python -m tpusfm_torch.cli sfm failed:\n{sub.stderr[-3000:]}")
+    R2, t2, n2 = _printed_pose(sub.stdout)
+    check_pose(R2, t2, n2, "python -m tpusfm_torch.cli sfm")
+    sub_launches = _rank_launches(log, "sfm")
+    if sub_launches != [launches["sfm"]]:
+        raise AssertionError(f"python -m tpusfm_torch.cli sfm logged launches {sub_launches}, "
+                             f"in process {launches['sfm']}")
+    print(f"[{smi}] phase 15: inputs written in {write_s:.1f} s; per subcommand ms "
+          f"{json.dumps({k: round(v, 1) for k, v in timings.items()})}; launches "
+          f"{json.dumps(launches)}; `python -m tpusfm_torch.cli sfm` {sub_s:.1f} s in a new "
+          f"process ({sub_launches[0]} launches logged); disparity cells "
+          f"{json.dumps({**sparse, **dense})}", flush=True)
+    return {"ms": timings, "launches": launches, "inputs": inp, "out": out,
+            "sfm_seq": {"n_registered": reg, "reproj_error_px": reproj},
+            "disparity": {**sparse, **dense}, "ate_after": float(pg["ate_after"]),
+            "subprocess_sfm_s": sub_s, "subprocess_sfm_launches": sub_launches[0],
+            "write_inputs_s": write_s}
+
+
+def _torchrun(argv, log, timeout=600):
+    """`python -m torch.distributed.run --standalone --nproc-per-node 2 -m
+    tpusfm_torch.cli argv` on this machine's card; returns (stdout, s)."""
+    import os
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc-per-node", "2", "-m", "tpusfm_torch.cli", *argv],
+                       capture_output=True, text=True, timeout=timeout,
+                       env={**os.environ, "TPUSFM_LAUNCH_LOG": os.path.abspath(log)})
+    if r.returncode != 0:
+        raise AssertionError(f"--devices 2 {argv[0]} failed ({r.returncode}):\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    print(r.stdout, end="", flush=True)
+    return r.stdout, time.perf_counter() - t0
+
+
+def _rank_launches(log, cmd):
+    import os
+
+    if not os.path.exists(log):
+        return []
+    return [json.loads(line)["nn_search_launches"] for line in open(log)
+            if json.loads(line)["cmd"] == cmd]
+
+
+def check_devices(distance, smi, cli_run, f_pair) -> dict:
+    """Phase 16: --devices 2 on the one card. sfm-seq, pose-graph and the
+    dense disparity cells (sift, gms, orb) through torch.distributed.run,
+    the two ranks sharing cuda:0 over gloo (operands staged through the
+    host), held against phase 15's single-device run: sfm-seq registers as
+    many views at the same error (rtol 1e-3) with the same cameras
+    (rotations and centres in baseline units, 1e-4: card runs spread by
+    ~3e-6, and a BA that solved each rank's half of the observations
+    would move them further); pose-graph centres within 1e-4 of their
+    extent and the same ATE (rtol 1e-3); each disparity cell's count equal
+    and RMS within 1e-4. Then, in this process, a world-size-1 NCCL group
+    on the card: sharded_bundle_adjust at 8,192 tracks / 6 views (and,
+    under torch.profiler, the device time of its NCCL kernels against the
+    unsharded solve's), ring_nn_search on the stereo pair's dense SIFT (1 x
+    168750 x 168750 x 128 f32; indices equal, rtol 1e-5) and
+    parallel_pair_match on phase 5's step, each timed against its
+    unsharded call."""
+    import os
+
+    from tpusfm_torch.ba.solver import bundle_adjust
+    from tpusfm_torch.ba.synthetic import synth_ba_problem
+    from tpusfm_torch.config import BaConfig
+    from tpusfm_torch.dist import group as dg
+    from tpusfm_torch.dist.pair_parallel import pair_nn, parallel_pair_match
+    from tpusfm_torch.dist.ring_match import ring_nn_search
+    from tpusfm_torch.stereo.disparity import dense_features
+
+    inp, one = cli_run["inputs"], cli_run["out"]
+    out, log = f"{CLI_ROOT}/out2", f"{CLI_ROOT}/launches_devices.jsonl"
+    if os.path.exists(log):
+        os.remove(log)
+    seq = ["--images", *inp["seq"], "--calib", inp["calib"], "--devices", "2"]
+    res, secs = {}, {}
+    text, secs["sfm_seq"] = _torchrun(["sfm-seq", *seq, "--out", f"{out}/seq"], log)
+    if "over gloo" not in text:
+        raise AssertionError("--devices 2 on one card should run over gloo")
+    reg = int(text.split("n_registered: ")[1].split()[0])
+    reproj = float(text.split("reproj_error_px: ")[1].split()[0])
+    ref = cli_run["sfm_seq"]
+    a, b = np.load(f"{out}/seq/reconstruction.npz"), np.load(f"{one}/seq/reconstruction.npz")
+    dcam = float((ba_gauge_free(torch.from_numpy(a["cams"]).double())
+                  - ba_gauge_free(torch.from_numpy(b["cams"]).double())).abs().max())
+    res["sfm_seq"] = {"n_registered": reg, "reproj_error_px": reproj, "max_cam_diff": dcam}
+    if not (reg == ref["n_registered"]
+            and abs(reproj - ref["reproj_error_px"]) <= 1e-3 * ref["reproj_error_px"]
+            and dcam < 1e-4):
+        raise AssertionError(f"--devices 2 sfm-seq {res['sfm_seq']} against one device {ref}")
+
+    text, secs["pose_graph"] = _torchrun(
+        ["pose-graph", *seq, "--ref-traj", f"{one}/seq/reconstruction.npz", "--out", f"{out}/pg"],
+        log)
+    a, b = np.load(f"{out}/pg/pose_graph.npz"), np.load(f"{one}/pg/pose_graph.npz")
+    extent = float(np.abs(b["centers_pgo"]).max())
+    dc = float(np.abs(a["centers_pgo"] - b["centers_pgo"]).max())
+    res["pose_graph"] = {"ate_after": float(a["ate_after"]), "max_center_diff": dc}
+    if not (dc <= 1e-4 * extent
+            and abs(float(a["ate_after"]) - float(b["ate_after"])) <= 1e-3 * float(b["ate_after"])):
+        raise AssertionError(f"--devices 2 pose-graph {res['pose_graph']} against ATE "
+                             f"{float(b['ate_after'])}, extent {extent}")
+
+    left, right, gt = inp["stereo"]
+    text, secs["disparity"] = _torchrun(
+        ["disparity", "--left", left, "--right", right, "--gt", gt, "--density", "dense",
+         "--algorithms", "sift", "gms", "orb", "--devices", "2", "--out", f"{out}/disparity"], log)
+    cells = _printed_cells(text)
+    res["disparity"] = cells
+    for name, c in cells.items():
+        r1 = cli_run["disparity"][name]
+        if not (c["count"] == r1["count"] and np.isclose(c["rms"], r1["rms"], rtol=1e-4)):
+            raise AssertionError(f"--devices 2 disparity {name} {c} against one device {r1}")
+    if len(cells) != 3:
+        raise AssertionError(f"--devices 2 disparity printed {sorted(cells)}")
+    ring_launches = _rank_launches(log, "disparity")
+    if len(ring_launches) != 2 or min(ring_launches) < 3 * 2:
+        raise AssertionError(f"--devices 2 disparity: rank launches {ring_launches}")
+
+    # a world-size-1 NCCL group on the card: NCCL runs
+    port = _free_port()
+    group = dg.init_group(0, 1, "cuda:0", "nccl", f"tcp://localhost:{port}")
+    try:
+        K, dist, cams0, X0, obs = synth_ba_problem(6, 8192)
+        cfg = BaConfig(max_iters=10)
+        from tpusfm_torch.dist.sharded_ba import sharded_bundle_adjust
+
+        def ba():
+            return bundle_adjust(cams0, X0, obs, K, dist, cfg)
+
+        def sba():
+            return sharded_bundle_adjust(cams0, X0, obs, K, dist, group, cfg)
+
+        c1, p1, k1 = ba()
+        c2, p2, k2 = sba()
+        # unsharded, sharded, sharded, unsharded: ms an LM iteration
+        ba_ms, sba_ms = [], []
+        for fn, into in ((ba, ba_ms), (sba, sba_ms), (sba, sba_ms), (ba, ba_ms)):
+            into.append(cuda_ms(fn, 3) / cfg.max_iters)
+        ba_dev = {k: v / cfg.max_iters for k, v in device_breakdown(ba).items()}
+        sba_dev = {k: v / cfg.max_iters for k, v in device_breakdown(sba).items()}
+        dba = float((ba_gauge_free(c1) - ba_gauge_free(c2)).abs().max())
+        if not (dba < 1e-2 and abs(float(k1[-1]) - float(k2[-1])) <= 1e-3 * float(k1[-1])):
+            raise AssertionError(f"sharded BA (NCCL, 1 rank) off the unsharded solver: {dba}")
+
+        lg, rg = (torch.from_numpy(x).cuda() for x in render_stereo_pair()[:2])
+        f1, f2 = dense_features(lg), dense_features(rg)
+        before = distance.launches
+        ri, rb, rs = ring_nn_search(f1.desc, f2.desc, f2.kpts.mask.float(), group)
+        ring_count = distance.launches - before
+        ni, nb, ns = distance.nn_search(f1.desc, f2.desc, f2.kpts.mask.float())
+        ring_ok = (torch.equal(ri, ni) and torch.allclose(rb, nb, rtol=1e-5, atol=1e-6)
+                   and torch.allclose(rs, ns, rtol=1e-5, atol=1e-6))
+        ring_ms = cuda_ms(lambda: ring_nn_search(f1.desc, f2.desc, f2.kpts.mask.float(), group), 3)
+        nn_ms = cuda_ms(lambda: distance.nn_search(f1.desc, f2.desc, f2.kpts.mask.float()), 3)
+        if not ring_ok:
+            raise AssertionError("ring_nn_search (NCCL, 1 rank) disagrees with nn_search")
+
+        d1, d2, m1, m2 = f_pair
+        before = distance.launches
+        pi = parallel_pair_match(d1, d2, m1, m2, group)
+        pair_count = distance.launches - before
+        si = pair_nn(d1, d2, m1, m2)
+        if not all(torch.equal(a, b) for a, b in zip(pi, si)):
+            raise AssertionError("parallel_pair_match (NCCL, 1 rank) disagrees with pair_nn")
+        pp_ms = cuda_ms(lambda: parallel_pair_match(d1, d2, m1, m2, group), 5)
+        pn_ms = cuda_ms(lambda: pair_nn(d1, d2, m1, m2), 5)
+    finally:
+        dg.close(group)
+    res.update(seconds=secs, rank_launches_disparity=ring_launches,
+               nccl={"ba_ms_per_iter": ba_ms, "sharded_ba_ms_per_iter": sba_ms,
+                     "ba_device_per_iter": ba_dev, "sharded_ba_device_per_iter": sba_dev,
+                     "ba_gauge_free_diff": dba, "ring_ms": ring_ms, "nn_search_ms": nn_ms,
+                     "ring_launches": ring_count, "pair_parallel_ms": pp_ms,
+                     "pair_nn_ms": pn_ms, "pair_parallel_launches": pair_count,
+                     "pair_shape": list(d1.shape)})
+    print(f"[{smi}] phase 16: --devices 2 over gloo on one card: sfm-seq {secs['sfm_seq']:.1f} s "
+          f"(cameras {dcam:.3g} from one device's, gauge-free), pose-graph "
+          f"{secs['pose_graph']:.1f} s (centres {dc:.3g} apart), dense disparity "
+          f"{secs['disparity']:.1f} s (rank launches {ring_launches}, cells equal); "
+          f"world-size-1 NCCL: BA 8192/6 ms/iter sharded {[round(v, 3) for v in sba_ms]} vs "
+          f"unsharded {[round(v, 3) for v in ba_ms]} (CUDA events, in turns); per iteration "
+          f"under torch.profiler, sharded {sba_dev['device_ms']:.3f} device ms in "
+          f"{sba_dev['activities']:g} activities, of which NCCL {sba_dev['nccl_ms']:.4f} ms in "
+          f"{sba_dev['nccl_activities']:g}, vs unsharded {ba_dev['device_ms']:.3f} ms in "
+          f"{ba_dev['activities']:g}; ring_nn_search 1x168750^2x128 {ring_ms:.2f} ms vs "
+          f"nn_search {nn_ms:.2f} ms ({ring_count} launch); parallel_pair_match "
+          f"{list(d1.shape)} {pp_ms:.2f} ms vs pair_nn {pn_ms:.2f} ms ({pair_count} launches)",
+          flush=True)
+    return res
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1548,6 +1935,7 @@ def main():
 
     # Phase 5: the main path at the reference's operating point.
     g1, g2, focal = render_full_pair()
+    full_pair = (g1, g2, focal)
     h, w = g1.shape
     cfg = PipelineConfig(sift=SiftConfig(max_features=N_FEATURES),
                          match=MatchConfig(max_matches=MAX_MATCHES),
@@ -1590,6 +1978,7 @@ def main():
     # batched match of one step, and match + geometry of one step.
     fb = cat([sift_detect_and_compute(imgs, cfg.sift) for _ in range(N_PAIRS)])
     f1, f2 = fb.index(slice(0, None, 2)), fb.index(slice(1, None, 2))
+    step_pairs = (f1.desc, f2.desc, f1.kpts.mask, f2.kpts.mask)
     n_kp = fb.kpts.mask.sum(-1).tolist()
     sift_ms = cuda_ms(lambda: sift_detect_and_compute(imgs, cfg.sift), 2) / 2
     match_ms = cuda_ms(lambda: bf_match(f1.desc, f2.desc, f1.kpts.mask, f2.kpts.mask,
@@ -1657,10 +2046,20 @@ def main():
     t_phase = time.perf_counter()
     calibration = check_calibration(smi)
     print(f"[{smi}] phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    # Phase 15: the CLI on the card, one device.
+    t_phase = time.perf_counter()
+    cli_run = check_cli(distance, smi, full_pair)
+    print(f"[{smi}] phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    # Phase 16: --devices 2 on the one card, then a world-size-1 NCCL group.
+    t_phase = time.perf_counter()
+    devices = check_devices(distance, smi, cli_run, step_pairs)
+    print(f"[{smi}] phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     print(json.dumps({"two_view": {a: two_view[a] for a in ("gms", "logos")},
                       "disparity": grid["cells"], "stages": stages,
                       "multiview": {"sfm_seq": sfm_seq, "ba": ba, "pose_graph": pose_graph},
-                      "stereo": stereo, "portrait": portrait, "calibration": calibration}),
+                      "stereo": stereo, "portrait": portrait, "calibration": calibration,
+                      "cli": {k: v for k, v in cli_run.items() if k not in ("inputs", "out")},
+                      "devices": devices}),
           flush=True)
 
     print(json.dumps({"kernels": [{
@@ -1675,7 +2074,11 @@ def main():
                              "sfm_seq": sfm_seq["launches"],
                              "pose_graph": pose_graph["launches"],
                              "portrait": portrait["f32"]["launches"],
-                             "portrait_bf16": portrait["bf16"]["launches"]},
+                             "portrait_bf16": portrait["bf16"]["launches"],
+                             **{f"cli_{k}": v for k, v in cli_run["launches"].items()},
+                             "ring_dense_disparity": sum(devices["rank_launches_disparity"]),
+                             "ring_nccl_dense_sift": devices["nccl"]["ring_launches"],
+                             "pair_parallel": devices["nccl"]["pair_parallel_launches"]},
         **record, **{k: v for k, v in two_view.items() if k.startswith("gms_raw")},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,9 @@ and in its dense modes on a rendered stereo pair's dense ORB and dense SIFT
 descriptors), and the two-view slice (bf, GMS, LOGOS), the sparse
 disparity cells, both BA solvers, the dense and CG pose graph, PnP and
 incremental multi-view SfM, StereoBM, the median blur, portrait mode (f32
-and bf16) and calibration on the card against the CPU.
+and bf16) and calibration on the card against the CPU; the ring NN search
+over two ranks sharing the card (gloo) against one nn_search call, and the
+CLI's sfm on the card.
 
 This file imports no jax, so it runs where jax is absent:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -415,3 +417,114 @@ def test_cuda_calibrate_camera_matches_cpu(cuda_device):
     gi, _, _, grms = calibrate_camera(obj, np.stack(pts), (504, 378), device=cuda_device)
     torch.testing.assert_close(gi.K.cpu(), ci.K, rtol=1e-3, atol=1e-3)
     assert gi.K.device.type == "cuda" and abs(grms - crms) <= 1e-3 * crms + 1e-4
+
+
+def _ring_inputs(metric):
+    """Seeded ring inputs on the card (the same in every process)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    if metric == "l2":
+        q = torch.randn(4096, 128, device="cuda", generator=g)
+        db = torch.randn(6144, 128, device="cuda", generator=g)
+        db[3072:3080] = db[:8]                 # exact ties across the two shards
+        q[:8] = db[:8] + 0.01 * torch.randn(8, 128, device="cuda", generator=g)
+    else:
+        q = torch.randint(-2**31, 2**31 - 1, (4096, 8), device="cuda", generator=g,
+                          dtype=torch.int32)
+        db = torch.randint(-2**31, 2**31 - 1, (6144, 8), device="cuda", generator=g,
+                           dtype=torch.int32)
+    mask = (torch.rand(6144, device="cuda", generator=g) > 0.05).float()
+    mask[:8] = 1.0
+    return q, db, mask
+
+
+def _ring_rank(rank, port, metric, path):
+    import datetime
+
+    import numpy as np
+
+    from tpusfm_torch.dist.group import close, init_group
+    from tpusfm_torch.dist.ring_match import ring_nn_search
+
+    group = init_group(rank, 2, "cuda:0", "gloo", f"tcp://127.0.0.1:{port}",
+                       timeout=datetime.timedelta(seconds=120))
+    try:
+        before = td.launches
+        out = ring_nn_search(*_ring_inputs(metric), group, "l2" if metric == "l2" else "hamming")
+        if rank == 0:
+            np.savez(path, *(t.cpu().numpy() for t in out), launches=td.launches - before)
+    finally:
+        close(group)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "hamming"])
+def test_cuda_ring_nn_search_matches_nn_search(cuda_device, metric, tmp_path):
+    """Two ranks sharing the card over gloo (operands staged through the
+    host), one kernel launch a ring step: the gathered result equals one
+    nn_search call on the card (indices equal, distances rtol 1e-5; the
+    planted ties across the shards go to the lowest index)."""
+    import multiprocessing
+    import socket
+
+    import numpy as np
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    path = str(tmp_path / "ring.npz")
+    procs = [ctx.Process(target=_ring_rank, args=(r, port, metric, path)) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0, 0]
+    z = np.load(path)
+    q, db, mask = _ring_inputs(metric)
+    idx, best, second = (t.cpu().numpy() for t in td.nn_search(
+        q, db, mask, "l2" if metric == "l2" else "hamming"))
+    np.testing.assert_array_equal(z["arr_0"], idx)
+    np.testing.assert_allclose(z["arr_1"], best, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(z["arr_2"], second, rtol=1e-5, atol=1e-6)
+    assert int(z["launches"]) == 2
+    if metric == "l2":
+        assert (z["arr_0"][:8] < 8).all()
+
+
+@pytest.mark.cuda
+def test_cuda_cli_sfm(cuda_device, tmp_path, monkeypatch):
+    """`sfm` through the CLI on the card (TPUSFM_PLATFORM unset) on a
+    rendered 504x378 pair written as PNGs: the rail's sideways pose, its
+    files, and the kernel's two cross-check launches with --algorithm bf."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from chip_smoke import check_pose, render_sequence
+    from tpusfm_torch.cli.__main__ import main
+    from tpusfm_torch.io import imwrite
+
+    monkeypatch.delenv("TPUSFM_PLATFORM", raising=False)
+    (g1, g2), f, _ = render_sequence(2, 378, 504, step=0.5)
+    imwrite(str(tmp_path / "a.png"), g1)
+    imwrite(str(tmp_path / "b.png"), g2)
+    np.savez(tmp_path / "calib.npz", K=np.array([[f, 0, 252], [0, f, 189], [0, 0, 1]], np.float32),
+             dist=np.zeros(5, np.float32), image_size=np.array([504, 378]))
+    before = td.launches
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(["sfm", "--image1", str(tmp_path / "a.png"), "--image2", str(tmp_path / "b.png"),
+              "--calib", str(tmp_path / "calib.npz"), "--algorithm", "bf",
+              "--out", str(tmp_path / "out")])
+    assert td.launches - before == 2
+    lines = buf.getvalue().splitlines()
+    i = lines.index("R:")
+    R = torch.tensor([[float(v) for v in lines[i + k].strip(" []").split()] for k in (1, 2, 3)])
+    t = torch.tensor([float(v) for v in lines[i + 4].split(":")[1].strip(" []").split()])
+    check_pose(R, t, int(buf.getvalue().split("inliers=")[1].split()[0]), "cli sfm on the card")
+    assert (tmp_path / "out" / "two_view.ply").exists()
+    assert (tmp_path / "out" / "two_view_matches.png").exists()

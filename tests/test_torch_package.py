@@ -41,7 +41,13 @@ _MODULES = [
     "tpusfm_torch.utils.traj", "tpusfm_torch.utils.jacobian", "tpusfm_torch.utils.build",
     "tpusfm_torch.native", "tpusfm_torch.stereo.filters", "tpusfm_torch.stereo.block_matching",
     "tpusfm_torch.stereo.portrait", "tpusfm_torch.calib", "tpusfm_torch.calib.zhang",
-    "tpusfm_torch.calib.chessboard",
+    "tpusfm_torch.calib.chessboard", "tpusfm_torch.io.png", "tpusfm_torch.viz",
+    "tpusfm_torch.viz.draw", "tpusfm_torch.viz.ply", "tpusfm_torch.utils.timing",
+    "tpusfm_torch.utils.log", "tpusfm_torch.cli", "tpusfm_torch.cli.__main__",
+    "tpusfm_torch.dist", "tpusfm_torch.dist.group", "tpusfm_torch.dist.ring_match",
+    "tpusfm_torch.dist.sharded_gms", "tpusfm_torch.dist.fused_dense",
+    "tpusfm_torch.dist.sharded_ba", "tpusfm_torch.dist.sharded_pgo",
+    "tpusfm_torch.dist.pair_parallel",
 ]
 
 
@@ -74,6 +80,8 @@ def test_no_source_of_the_port_or_chip_smoke_imports_jax_or_tpusfm():
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
             bad += [(f.name, n) for n in names if n.split(".")[0] in ("jax", "jaxlib", "tpusfm")]
     assert len(files) > 40 and not bad, bad
+    for sub in ("cli", "dist", "viz"):
+        assert any(f.parent.name == sub for f in files), sub
 
 
 @pytest.mark.parametrize("name", ["SiftConfig", "OrbConfig", "MatchConfig", "GmsConfig",
@@ -248,3 +256,33 @@ def test_native_library_builds_under_the_ports_build_directory():
     assert n == 1 and areas.tolist() == [4]
     with pytest.raises(ValueError):
         native.connected_components(np.zeros((2, 2, 2)))
+
+
+def test_builds_started_at_once_never_leave_a_partial_library(tmp_path, monkeypatch):
+    """Two builders of one source at once (the ranks of a process group
+    each load the NN kernel): both get the complete library and its log,
+    and no temporary file is left behind."""
+    import threading
+
+    from tpusfm_torch.utils import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    src = tmp_path / "k.cu"
+    src.write_text("// kernel\n")
+    compiler = tmp_path / "cc.py"
+    compiler.write_text("import sys, time\nout = sys.argv[sys.argv.index('-o') + 1]\n"
+                        "with open(out, 'w') as f:\n"
+                        "    for k in range(5):\n"
+                        "        f.write('x' * 1000); f.flush(); time.sleep(0.05)\n"
+                        "print('built', out)\n")
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(
+        build.build_library(src, sys.executable, (str(compiler),), "k"))) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert len(got) == 2 and got[0] == got[1]
+    assert got[0].read_text() == "x" * 5000 and "built" in got[0].with_suffix(".log").read_text()
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
+        [got[0].name, got[0].with_suffix(".log").name])

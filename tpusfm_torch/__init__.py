@@ -6,7 +6,9 @@ compare row for row against the JAX package, which stays the reference.
 It never imports jax.
 
 Package map:
-  io/        grayscale decode, dataset manifests, resize / rotate
+  cli/       the command line: tpusfm's nine subcommands
+  io/        image decode/encode (PNG without PIL), dataset manifests,
+             resize / rotate
   kernels/   the hand-written CUDA NN-search kernel + its plain torch version
   features/  scale space, SIFT (fast-descriptor path), ORB, dense SIFT
   match/     brute-force matching with the reference's prune rules, GMS,
@@ -19,8 +21,13 @@ Package map:
   pgo/       SE(3) ops, pose-graph LM (dense and matrix-free CG), the
              sequence graph builder
   stereo/    match-based disparity and the reference's RMS benchmark grid
+  dist/      multi-device paths over torch.distributed: process groups
+             and collectives, the ring matcher, sharded GMS, BA and pose
+             graph, pair-parallel matching
+  viz/       PLY export, match and keypoint drawings (numpy rasteriser)
   utils/     padding helpers, conversion of shared state from numpy,
-             row-wise forward-mode Jacobians, checkpoints, trajectory ATE
+             row-wise forward-mode Jacobians, checkpoints, trajectory ATE,
+             stage timing and metrics logging
 """
 
 __version__ = "0.1.0"

@@ -45,14 +45,19 @@ def _reproj_errors(cams, points, obs: Observations, K, dist) -> np.ndarray:
 
 
 def incremental_sfm(features, sizes, intr, cfg: PipelineConfig = PipelineConfig(),
-                    algo: str = "gms", pair_span: int = 2, max_tracks: int = 8192):
+                    algo: str = "gms", pair_span: int = 2, max_tracks: int = 8192,
+                    group=None):
     """Reconstruct a sequence.
 
     features: list of Features per view; sizes: list of (w, h); intr:
     CameraIntrinsics. Returns dict with cams (V,6), points (P,3),
     point_valid (P,), obs, and per-stage metrics (reproj_error_px, ...).
-    tpusfm's ``mesh`` argument (every BA solve sharded over devices) is not
-    ported yet: it belongs to the port's multi-device slice."""
+
+    group: an optional process group (tpusfm_torch.dist.group, tpusfm's
+    ``mesh``). With more than one rank every BA solve shards its
+    observation axis over the group (dist/sharded_ba.py, summed Schur
+    blocks); every rank runs the rest of the pipeline on the full inputs
+    and returns the same reconstruction."""
     V = len(features)
     K, dist = intr.K, intr.dist
     dev = K.device
@@ -60,6 +65,11 @@ def incremental_sfm(features, sizes, intr, cfg: PipelineConfig = PipelineConfig(
 
     def run_ba(cams_t, points_t, obs_ba, iters=None):
         ba = cfg.ba if iters is None else dataclasses.replace(cfg.ba, max_iters=iters)
+        if group is not None and group.size > 1:
+            from tpusfm_torch.dist.sharded_ba import sharded_bundle_adjust
+
+            return sharded_bundle_adjust(cams_t, points_t, obs_ba, K, dist, group, ba,
+                                         n_fixed_cams=1)
         return bundle_adjust(cams_t, points_t, obs_ba, K, dist, ba, n_fixed_cams=1)
 
     def on_dev(a, dtype=None):

@@ -15,6 +15,9 @@ The port of tpusfm's flat solver (the one ``incremental_sfm`` runs):
 * The LM loop runs a fixed number of iterations; accept/reject and the
   damping stay on the device (``torch.where``), so nothing waits on the
   host.
+* ``reduce_fn`` (the block builders and the LM loop) sums the segment sums
+  over processes where the observation axis is sharded
+  (tpusfm_torch/dist/sharded_ba.py); None on one process.
 """
 from __future__ import annotations
 
@@ -47,9 +50,10 @@ def _huber_cost(r, mask, delta):
     return torch.where(mask, huber, 0.0).sum()
 
 
-def compute_cost(cams, points, obs: Observations, K, dist, delta):
+def compute_cost(cams, points, obs: Observations, K, dist, delta, reduce_fn=None):
     r = _residuals(cams, points[obs.pt.long()], obs.cam, obs.xy, K, dist)
-    return _huber_cost(r, obs.mask, delta)
+    cost = _huber_cost(r, obs.mask, delta)
+    return cost if reduce_fn is None else reduce_fn(cost)[0]
 
 
 def cam_rotations(cams):
@@ -99,11 +103,12 @@ def chain_block_one(cams, R, dRdw, cam_id, pt3, xy, m, K, dist, delta):
             torch.nan_to_num(r) * w[..., None])
 
 
-def build_normal_blocks(cams, points, obs: Observations, K, dist, delta):
+def build_normal_blocks(cams, points, obs: Observations, K, dist, delta, reduce_fn=None):
     """Accumulate (U, Vp, W, g_c, g_p, cost) for the current linearization.
 
     Shapes: U (V,6,6); Vp (P,3,3); W (P,V,6,3); g_c (V,6); g_p (P,3).
-    Every output is a segment sum over observations."""
+    Every output is a segment sum over observations (over all shards with
+    ``reduce_fn``)."""
     Vn, Pn = cams.shape[0], points.shape[0]
     cam, pt = obs.cam.long(), obs.pt.long()
     R, dRdw = cam_rotations(cams)
@@ -116,7 +121,8 @@ def build_normal_blocks(cams, points, obs: Observations, K, dist, delta):
     g_c = z(Vn, 6).index_add_(0, cam, -torch.einsum("oik,oi->ok", A, r))
     g_p = z(Pn, 3).index_add_(0, pt, -torch.einsum("oik,oi->ok", B, r))
     cost = compute_cost(cams, points, obs, K, dist, delta)
-    return U, Vp, W.reshape(Pn, Vn, 6, 3), g_c, g_p, cost
+    out = (U, Vp, W.reshape(Pn, Vn, 6, 3), g_c, g_p, cost)
+    return out if reduce_fn is None else reduce_fn(*out)
 
 
 def sym3_inv(Vd):
@@ -138,12 +144,16 @@ def sym3_inv(Vd):
     return adj / det[..., None, None]
 
 
-def damp_blocks(U, Vp, lam):
-    """LM damping on the block diagonals (multiplicative, Marquardt style):
-    (Ud (V,6,6), V^-1 (P,3,3))."""
+def damp_cams(U, lam):
+    """LM damping of the camera blocks (multiplicative, Marquardt style)."""
     e6 = torch.eye(6, dtype=U.dtype, device=U.device)
+    return U + lam * U * e6 + 1e-8 * e6
+
+
+def damp_points_inv(Vp, lam):
+    """The inverses of the damped point blocks (P,3,3)."""
     e3 = torch.eye(3, dtype=Vp.dtype, device=Vp.device)
-    return U + lam * U * e6 + 1e-8 * e6, sym3_inv(Vp + lam * Vp * e3 + 1e-8 * e3)
+    return sym3_inv(Vp + lam * Vp * e3 + 1e-8 * e3)
 
 
 def block_diag(D):
@@ -167,7 +177,7 @@ def solve_cameras(S, rhs, n_fixed_cams: int):
 
 def schur_solve(U, Vp, W, g_c, g_p, lam, n_fixed_cams: int):
     """One damped Schur step: returns (delta_cams (V,6), delta_points (P,3))."""
-    Ud, Vinv = damp_blocks(U, Vp, lam)
+    Ud, Vinv = damp_cams(U, lam), damp_points_inv(Vp, lam)
     M = torch.einsum("pvia,pab->pvib", W, Vinv)            # (P,V,6,3)
     S = block_diag(Ud) - torch.einsum("pvib,pwjb->viwj", M, W)
     rhs = g_c - torch.einsum("pvib,pb->vi", M, g_p)
@@ -186,17 +196,20 @@ def next_lambda(accept, lam, cfg: BaConfig):
 
 
 def bundle_adjust(cams, points, obs: Observations, K, dist,
-                  cfg: BaConfig = BaConfig(), n_fixed_cams: int = 1):
+                  cfg: BaConfig = BaConfig(), n_fixed_cams: int = 1, reduce_fn=None):
     """LM bundle adjustment. cams (V,6) [rvec|tvec]; points (P,3).
 
-    Returns (cams, points, costs (iters,)) -- costs for convergence logging."""
+    Returns (cams, points, costs (iters,)) -- costs for convergence logging.
+    ``obs`` may be one shard of the observations, with ``reduce_fn``
+    summing over the shards (every process then takes the same steps)."""
     delta = cfg.huber_delta
     lam = torch.tensor(cfg.init_lambda, dtype=cams.dtype, device=cams.device)
     costs = []
     for _ in range(cfg.max_iters):
-        U, Vp, W, g_c, g_p, cost = build_normal_blocks(cams, points, obs, K, dist, delta)
+        U, Vp, W, g_c, g_p, cost = build_normal_blocks(cams, points, obs, K, dist, delta,
+                                                       reduce_fn)
         dc, dp = schur_solve(U, Vp, W, g_c, g_p, lam, n_fixed_cams)
-        new_cost = compute_cost(cams + dc, points + dp, obs, K, dist, delta)
+        new_cost = compute_cost(cams + dc, points + dp, obs, K, dist, delta, reduce_fn)
         accept = new_cost < cost
         cams, points, cost = lm_update(accept, (cams + dc, points + dp, new_cost),
                                        (cams, points, cost))

@@ -16,6 +16,10 @@ slots and every normal-equation quantity is an array over (P, S, ...):
 tpusfm writes the same math as track-minor lane lists and one-hot matmul
 segment sums, a layout for the TPU's vector lanes and matrix unit; the
 semantics (Huber IRLS, damping, gauge fixing) are the flat solver's.
+
+With the track axis sharded over processes (tpusfm_torch/dist/sharded_ba.py)
+``reduce_fn`` sums the reduced camera system, its rhs and the cost over the
+shards; a track's point block, its update and its observations stay local.
 """
 from __future__ import annotations
 
@@ -25,8 +29,8 @@ import numpy as np
 import torch
 
 from tpusfm_torch.ba.solver import (_huber_cost, _residuals, block_diag, cam_rotations,
-                                    chain_block_one, damp_blocks, lm_update, next_lambda,
-                                    solve_cameras)
+                                    chain_block_one, damp_cams, damp_points_inv, lm_update,
+                                    next_lambda, solve_cameras)
 from tpusfm_torch.ba.tracks import Observations
 from tpusfm_torch.config import BaConfig
 
@@ -92,17 +96,21 @@ def _slot_blocks(cams, points, tobs: TrackObservations, K, dist, delta):
     return chain_block_one(cams, R, dRdw, tobs.cam, X, tobs.xy, tobs.mask, K, dist, delta)
 
 
-def tm_cost(cams, points, tobs: TrackObservations, K, dist, delta):
+def tm_cost(cams, points, tobs: TrackObservations, K, dist, delta, reduce_fn=None):
     """True Huber cost over valid slots."""
     X = points[:, None, :].expand(*tobs.cam.shape, 3)
-    return _huber_cost(_residuals(cams, X, tobs.cam, tobs.xy, K, dist), tobs.mask, delta)
+    cost = _huber_cost(_residuals(cams, X, tobs.cam, tobs.xy, K, dist), tobs.mask, delta)
+    return cost if reduce_fn is None else reduce_fn(cost)[0]
 
 
-def tm_normal_and_schur(cams, points, tobs: TrackObservations, K, dist, delta, lam):
+def tm_normal_and_schur(cams, points, tobs: TrackObservations, K, dist, delta, lam,
+                        reduce_fn=None):
     """One linearization: returns (S_r (V,6,V,6) Schur-reduced camera system,
     rhs (V,6), aux=(V_p^-1 (P,3,3), W (P,S,6,3), g_p (P,3)) for the
     back-substitution). Peak memory is the (P,S,S,6,6) slot-pair blocks
-    (170 MB at 131,072 tracks, S = 3)."""
+    (170 MB at 131,072 tracks, S = 3). With ``reduce_fn`` the camera sums
+    (U, g_c, the Schur terms) are summed over the shards before U is
+    damped, so a sharded system equals the single-process one."""
     Vn = cams.shape[0]
     A, B, r = _slot_blocks(cams, points, tobs, K, dist, delta)
     cam = tobs.cam.long()
@@ -113,7 +121,7 @@ def tm_normal_and_schur(cams, points, tobs: TrackObservations, K, dist, delta, l
     flat = cam.reshape(-1)
     z = cams.new_zeros
     U = z(Vn, 6, 6).index_add_(0, flat, torch.einsum("psik,psil->pskl", A, A).reshape(-1, 6, 6))
-    Ud, Vinv = damp_blocks(U, Vp, lam)
+    Vinv = damp_points_inv(Vp, lam)
     M = W @ Vinv[:, None]                                           # (P,S,6,3)
     g_c = z(Vn, 6).index_add_(0, flat, -torch.einsum("psik,psi->psk", A, r).reshape(-1, 6))
     Mg = z(Vn, 6).index_add_(0, flat, torch.einsum("pskb,pb->psk", M, g_p).reshape(-1, 6))
@@ -121,7 +129,9 @@ def tm_normal_and_schur(cams, points, tobs: TrackObservations, K, dist, delta, l
     pairs = (cam[:, :, None] * Vn + cam[:, None, :]).reshape(-1)    # slot pair -> (cam_s, cam_t)
     Sc = torch.einsum("psib,ptjb->pstij", M, W).reshape(-1, 6, 6)
     S_sum = z(Vn * Vn, 6, 6).index_add_(0, pairs, Sc)
-    S_r = block_diag(Ud) - S_sum.reshape(Vn, Vn, 6, 6).permute(0, 2, 1, 3)
+    if reduce_fn is not None:
+        U, g_c, Mg, S_sum = reduce_fn(U, g_c, Mg, S_sum)
+    S_r = block_diag(damp_cams(U, lam)) - S_sum.reshape(Vn, Vn, 6, 6).permute(0, 2, 1, 3)
     return S_r, g_c - Mg, (Vinv, W, g_p)
 
 
@@ -137,20 +147,23 @@ def tm_back_substitute(tobs: TrackObservations, aux, dc):
 
 
 def bundle_adjust_tm(cams, points, tobs: TrackObservations, K, dist,
-                     cfg: BaConfig = BaConfig(), n_fixed_cams: int = 1):
+                     cfg: BaConfig = BaConfig(), n_fixed_cams: int = 1, reduce_fn=None):
     """LM bundle adjustment over track-major observations.
 
-    Same contract as solver.bundle_adjust: returns (cams, points, costs)."""
+    Same contract as solver.bundle_adjust: returns (cams, points, costs).
+    ``points`` and ``tobs`` may be one shard of the tracks, with
+    ``reduce_fn`` summing over the shards; the points returned are then
+    the shard's."""
     delta = cfg.huber_delta
     lam = torch.tensor(cfg.init_lambda, dtype=cams.dtype, device=cams.device)
     # the current cost rides along: one residual pass per iteration
-    cost = tm_cost(cams, points, tobs, K, dist, delta)
+    cost = tm_cost(cams, points, tobs, K, dist, delta, reduce_fn)
     costs = []
     for _ in range(cfg.max_iters):
-        S_r, rhs, aux = tm_normal_and_schur(cams, points, tobs, K, dist, delta, lam)
+        S_r, rhs, aux = tm_normal_and_schur(cams, points, tobs, K, dist, delta, lam, reduce_fn)
         dc = tm_solve_cameras(S_r, rhs, n_fixed_cams)
         dp = tm_back_substitute(tobs, aux, dc)
-        new_cost = tm_cost(cams + dc, points + dp, tobs, K, dist, delta)
+        new_cost = tm_cost(cams + dc, points + dp, tobs, K, dist, delta, reduce_fn)
         accept = new_cost < cost
         cams, points, cost = lm_update(accept, (cams + dc, points + dp, new_cost),
                                        (cams, points, cost))

@@ -1,23 +1,36 @@
 """Host-side image decode/encode (the reference's cv::imread, imwrite and
 cvtColor) and device-side image transforms (cv::resize and
 getRotationMatrix2D + warpAffine, SfM-GMS/main.cpp:44,114-120), with
-tpusfm's semantics. PIL is imported inside the functions that need it, not
-at module import: hosts without it can still import the package and feed
-arrays directly."""
+tpusfm's semantics. PNG goes through the port's own codec (io/png.py), so
+hosts without PIL read and write it; other formats need PIL, imported
+inside the functions that use it."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from tpusfm_torch.io import png
+
 # ITU-R BT.601 luma weights — matches cv::cvtColor(COLOR_BGR2GRAY) semantics.
 _LUMA = np.array([0.299, 0.587, 0.114], np.float32)
 
 
+def _pil(path: str):
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{path}: only PNG is decoded and encoded without PIL, "
+                          "and PIL is not installed") from e
+    return Image
+
+
 def imread(path: str) -> np.ndarray:
     """Decode an image file to (H, W, 3) float32 RGB in [0, 1]."""
-    from PIL import Image
-
-    return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+    if png.is_png(path):
+        rgb = png.read_rgb(path)
+    else:
+        rgb = _pil(path).open(path).convert("RGB")
+    return np.asarray(rgb, np.float32) / 255.0
 
 
 def imread_gray(path: str) -> np.ndarray:
@@ -27,13 +40,15 @@ def imread_gray(path: str) -> np.ndarray:
 
 def imwrite(path: str, img) -> None:
     """Encode (H, W) or (H, W, 3) float in [0, 1] or uint8 (numpy or a
-    tensor on any device) to PNG/JPEG."""
-    from PIL import Image
-
+    tensor on any device) to PNG (by the ``.png`` suffix) or, with PIL, to
+    any format PIL writes."""
     arr = img.detach().cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
     if arr.dtype != np.uint8:
         arr = np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    Image.fromarray(arr).save(path)
+    if str(path).lower().endswith(".png"):
+        png.write(path, arr)
+    else:
+        _pil(path).fromarray(arr).save(path)
 
 
 def to_gray(rgb):

@@ -77,9 +77,12 @@ def _neighbors(rows, cols, device):
     return torch.stack(out, 1)
 
 
-def _scale_pass(xy1, xy2, mmask, size1, size2, cfg: GmsConfig, rows2, cols2, rot_perms):
+def _scale_pass(xy1, xy2, mmask, size1, size2, cfg: GmsConfig, rows2, cols2, rot_perms,
+                reduce_fn=None):
     """Inlier masks for every rotation pattern at one grid scale: (R, N),
-    per rotation the OR over the 4 half-cell offsets."""
+    per rotation the OR over the 4 half-cell offsets. With the match axis
+    sharded over processes, ``reduce_fn`` sums the vote and occupancy
+    histograms over the shards (counts of 1.0: exact in any order)."""
     (w1, h1), (w2, h2) = size1, size2
     rows1, cols1 = cfg.grid_rows, cfg.grid_cols
     c1, c2 = rows1 * cols1, rows2 * cols2
@@ -102,6 +105,8 @@ def _scale_pass(xy1, xy2, mmask, size1, size2, cfg: GmsConfig, rows2, cols2, rot
     npts1.index_add_(0, (torch.where(ok, cell1, c1) + base * (c1 + 1)).reshape(-1),
                      torch.ones(flat.numel(), device=dev))
     npts1 = npts1.view(n_off, c1 + 1)[:, :-1]                # (O, c1)
+    if reduce_fn is not None:
+        votes, npts1 = reduce_fn(votes, npts1)
     best_j = torch.argmax(votes, 2)                          # (O, c1), first max
 
     # threshold depends only on the left grid occupancy (not on rotation)
@@ -124,19 +129,31 @@ def _scale_pass(xy1, xy2, mmask, size1, size2, cfg: GmsConfig, rows2, cols2, rot
     return per_rot.any(1)
 
 
-def gms_filter(kpts1: Keypoints, kpts2: Keypoints, matches: Matches,
-               size1: tuple[int, int], size2: tuple[int, int],
-               cfg: GmsConfig = GmsConfig()) -> Matches:
-    """Filter ``matches`` to GMS inliers; size = (width, height)."""
-    xy1, xy2 = matches.gather_xy(kpts1, kpts2)
+def gms_inliers(xy1, xy2, mmask, size1, size2, cfg: GmsConfig = GmsConfig(), reduce_fn=None):
+    """The inlier mask (N,) of the best configuration over rotation
+    patterns x scale ratios, for matches xy1 -> xy2 (N, 2) with mask
+    ``mmask``. ``reduce_fn`` sums histograms and inlier counts over the
+    shards where the match axis is sharded over processes
+    (tpusfm_torch/dist/sharded_gms.py)."""
     rot_perms = _rotation_perms(xy1.device)
     if not cfg.with_rotation:
         rot_perms = rot_perms[:1]
     scales = _SCALE_RATIOS if cfg.with_scale else [1.0]
     inls = torch.cat([
-        _scale_pass(xy1, xy2, matches.mask, size1, size2, cfg,
+        _scale_pass(xy1, xy2, mmask, size1, size2, cfg,
                     max(1, int(round(cfg.grid_rows * s))), max(1, int(round(cfg.grid_cols * s))),
-                    rot_perms)
+                    rot_perms, reduce_fn)
         for s in scales])                                    # (S*R, N)
-    best = inls[torch.argmax(inls.to(torch.int32).sum(1))]
+    counts = inls.to(torch.int32).sum(1)
+    if reduce_fn is not None:
+        counts, = reduce_fn(counts)
+    return inls[torch.argmax(counts)]
+
+
+def gms_filter(kpts1: Keypoints, kpts2: Keypoints, matches: Matches,
+               size1: tuple[int, int], size2: tuple[int, int],
+               cfg: GmsConfig = GmsConfig()) -> Matches:
+    """Filter ``matches`` to GMS inliers; size = (width, height)."""
+    xy1, xy2 = matches.gather_xy(kpts1, kpts2)
+    best = gms_inliers(xy1, xy2, matches.mask, size1, size2, cfg)
     return Matches(idx1=matches.idx1, idx2=matches.idx2, distance=matches.distance, mask=best)

@@ -14,9 +14,9 @@ SfM-GMS/SfMUtil.cpp:45):
   block-Jacobi preconditioned CG solves each step from the per-edge blocks.
 * Both loops run a fixed number of iterations with accept/reject damping on
   the device: nothing waits on the host.
-
-tpusfm's edge-sharded variants (a reduction hook on the CG core, the
-sharded dense LM) belong to the port's multi-device slice.
+* ``reduce_fn`` sums the edge sums (H or its blocks, g, H.v, the cost)
+  over processes where the edge axis is sharded
+  (tpusfm_torch/dist/sharded_pgo.py); None on one process.
 """
 from __future__ import annotations
 
@@ -96,10 +96,12 @@ def _endpoint_blocks(r, Ji, Jj):
             -torch.einsum("eki,ek->ei", Jj, r))
 
 
-def build_normal_system(R, t, ei, ej, Zr, Zt, w, n_nodes: int, cfg: PgoConfig = PgoConfig()):
+def build_normal_system(R, t, ei, ej, Zr, Zt, w, n_nodes: int, cfg: PgoConfig = PgoConfig(),
+                        reduce_fn=None):
     """Assemble (H (6N, 6N), g (6N,), cost) for the current linearization.
 
-    Every output is a segment sum over edges."""
+    Every output is a segment sum over edges (over all shards with
+    ``reduce_fn``)."""
     r, Ji, Jj = _edge_terms(R, t, ei, ej, Zr, Zt, w, _block_weights(cfg, t), cfg.huber_delta)
     Hii, Hjj, Hij, gi, gj = _endpoint_blocks(r, Ji, Jj)
     N = n_nodes
@@ -110,16 +112,18 @@ def build_normal_system(R, t, ei, ej, Zr, Zt, w, n_nodes: int, cfg: PgoConfig = 
         torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)]))
     H = H.reshape(N, N, 6, 6).permute(0, 2, 1, 3).reshape(6 * N, 6 * N)
     g = t.new_zeros(N, 6).index_add_(0, torch.cat([i, j]), torch.cat([gi, gj]))
-    return H, g.reshape(-1), (r * r).sum()
+    out = (H, g.reshape(-1), (r * r).sum())
+    return out if reduce_fn is None else reduce_fn(*out)
 
 
-def graph_cost(R, t, ei, ej, Zr, Zt, w, cfg: PgoConfig = PgoConfig()):
+def graph_cost(R, t, ei, ej, Zr, Zt, w, cfg: PgoConfig = PgoConfig(), reduce_fn=None):
     """True robust (Huber-on-norm) cost -- the LM accept/reject criterion."""
     r = edge_residual(R[ei], t[ei], R[ej], t[ej], Zr, Zt)
     rw = r * w[:, None] * _block_weights(cfg, t)[None]
     rn = torch.sqrt(torch.clamp((rw * rw).sum(-1), min=1e-18))
     d = cfg.huber_delta
-    return 2.0 * torch.where(rn <= d, 0.5 * rn * rn, d * (rn - 0.5 * d)).sum()
+    cost = 2.0 * torch.where(rn <= d, 0.5 * rn * rn, d * (rn - 0.5 * d)).sum()
+    return cost if reduce_fn is None else reduce_fn(cost)[0]
 
 
 def _lm_step(accept, new, old, lam, cfg: PgoConfig):
@@ -130,12 +134,13 @@ def _lm_step(accept, new, old, lam, cfg: PgoConfig):
 
 
 def optimize_pose_graph(R, t, ei, ej, Zr, Zt, w=None, cfg: PgoConfig = PgoConfig(),
-                        n_fixed: int = 1):
+                        n_fixed: int = 1, reduce_fn=None):
     """LM pose-graph optimization with a dense damped solve per step.
 
     R (N,3,3), t (N,3): initial node poses (world_T_node).
     ei, ej (E,) int: edge endpoints; Zr (E,3,3), Zt (E,3): measured relative
     poses node_i_T_node_j. w (E,): per-edge weights (masked edges -> 0).
+    The edges may be one shard, with ``reduce_fn`` summing over the shards.
     Returns (R, t, costs (iters,))."""
     N = R.shape[0]
     if w is None:
@@ -145,16 +150,16 @@ def optimize_pose_graph(R, t, ei, ej, Zr, Zt, w=None, cfg: PgoConfig = PgoConfig
     lam = torch.tensor(cfg.init_lambda, dtype=t.dtype, device=t.device)
     # the accepted TRUE Huber cost rides along: accept/reject compares
     # graph_cost against graph_cost, never against the IRLS surrogate
-    cost = graph_cost(R, t, ei, ej, Zr, Zt, w, cfg)
+    cost = graph_cost(R, t, ei, ej, Zr, Zt, w, cfg, reduce_fn)
     costs = []
     for _ in range(cfg.max_iters):
-        H, g, _ = build_normal_system(R, t, ei, ej, Zr, Zt, w, N, cfg)
+        H, g, _ = build_normal_system(R, t, ei, ej, Zr, Zt, w, N, cfg, reduce_fn)
         # gauge fix: zero the rows/cols of the frozen nodes, unit diagonal
         Hf = H * free6[:, None] * free6[None, :] + torch.diag(1.0 - free6)
         Hf = Hf + lam * torch.diag(torch.clamp(torch.diagonal(Hf), min=1e-6))
         d = torch.linalg.solve_ex(Hf, (g * free6)[:, None])[0].reshape(N, 6) * free[:, None]
         R2, t2 = se3.compose(R, t, *se3.se3_exp(d))
-        new_cost = graph_cost(R2, t2, ei, ej, Zr, Zt, w, cfg)
+        new_cost = graph_cost(R2, t2, ei, ej, Zr, Zt, w, cfg, reduce_fn)
         (R, t, cost), lam = _lm_step(new_cost < cost, (R2, t2, new_cost), (R, t, cost), lam, cfg)
         costs.append(cost)
     return R, t, torch.stack(costs)
@@ -185,7 +190,8 @@ def _cg_solve(hv, Minv, b, iters: int):
     return x
 
 
-def lm_cg_core(R, t, ei, ej, Zr, Zt, w, N: int, cfg: PgoConfig, n_fixed: int):
+def lm_cg_core(R, t, ei, ej, Zr, Zt, w, N: int, cfg: PgoConfig, n_fixed: int,
+               reduce_fn=None):
     """LM over SE(3) with a MATRIX-FREE block-sparse inner solver.
 
     The dense path scatter-assembles a (6N)^2 H and runs an O(N^3) solve.
@@ -193,6 +199,9 @@ def lm_cg_core(R, t, ei, ej, Zr, Zt, w, N: int, cfg: PgoConfig, n_fixed: int):
     damped gauge-fixed H.v product is two gathers, four block products and
     one scatter-add per edge, and a block-Jacobi (per-node 6x6)
     preconditioned CG solves the step. Edges with w = 0 contribute nothing.
+    Under edge sharding ``reduce_fn`` sums over the shards: the block
+    diagonal and gradient once per LM step, the (N, 6) H.v product once per
+    CG iteration and the cost -- O(N) numbers, never quadratic in N.
     Returns (R, t, costs)."""
     bw = _block_weights(cfg, t)
     i, j = ei.long(), ej.long()
@@ -205,16 +214,19 @@ def lm_cg_core(R, t, ei, ej, Zr, Zt, w, N: int, cfg: PgoConfig, n_fixed: int):
         vi, vj = v[i], v[j]
         ci = torch.einsum("eab,eb->ea", Hii, vi) + torch.einsum("eab,eb->ea", Hij, vj)
         cj = torch.einsum("eba,eb->ea", Hij, vi) + torch.einsum("eab,eb->ea", Hjj, vj)
-        return t.new_zeros(N, 6).index_add_(0, both, torch.cat([ci, cj]))
+        out = t.new_zeros(N, 6).index_add_(0, both, torch.cat([ci, cj]))
+        return out if reduce_fn is None else reduce_fn(out)[0]
 
     lam = torch.tensor(cfg.init_lambda, dtype=t.dtype, device=t.device)
-    cost = graph_cost(R, t, ei, ej, Zr, Zt, w, cfg)
+    cost = graph_cost(R, t, ei, ej, Zr, Zt, w, cfg, reduce_fn)
     costs = []
     for _ in range(cfg.max_iters):
         r, Ji, Jj = _edge_terms(R, t, ei, ej, Zr, Zt, w, bw, cfg.huber_delta)
         Hii, Hjj, Hij, gi, gj = _endpoint_blocks(r, Ji, Jj)
         D = t.new_zeros(N, 6, 6).index_add_(0, both, torch.cat([Hii, Hjj]))
         g = t.new_zeros(N, 6).index_add_(0, both, torch.cat([gi, gj]))
+        if reduce_fn is not None:
+            D, g = reduce_fn(D, g)
         damp = lam * torch.clamp(torch.diagonal(D, dim1=1, dim2=2), min=1e-6)   # (N, 6)
 
         def A(v):
@@ -225,7 +237,7 @@ def lm_cg_core(R, t, ei, ej, Zr, Zt, w, N: int, cfg: PgoConfig, n_fixed: int):
         Minv = torch.linalg.inv_ex(Dd + 1e-8 * eye6)[0]
         d = _cg_solve(A, Minv, g * free, cfg.cg_iters) * free
         R2, t2 = se3.compose(R, t, *se3.se3_exp(d))
-        new_cost = graph_cost(R2, t2, ei, ej, Zr, Zt, w, cfg)
+        new_cost = graph_cost(R2, t2, ei, ej, Zr, Zt, w, cfg, reduce_fn)
         (R, t, cost), lam = _lm_step(new_cost < cost, (R2, t2, new_cost), (R, t, cost), lam, cfg)
         costs.append(cost)
     return R, t, torch.stack(costs)

@@ -21,6 +21,7 @@ from tpusfm_torch.match.bf import bf_match, matches_from_nn
 from tpusfm_torch.match.gms import gms_filter
 from tpusfm_torch.match.logos import logos_match
 from tpusfm_torch.types import Features, Keypoints, Matches
+from tpusfm_torch.utils.pad import pad_axis, round_up
 
 DENSE_CHUNK = 262144
 
@@ -109,15 +110,57 @@ def dense_raw_match(f1: Features, f2: Features, metric: str, cfg: MatchConfig,
     return matches_from_nn(idx, best, valid, cfg, metric, prune=False, capacity=n1)
 
 
+def _pad_rows(x, n: int):
+    """x padded with zero rows to n (packed uint32 words through int32)."""
+    if x.dtype == torch.uint32:
+        return pad_axis(x.view(torch.int32), n, 0).view(torch.uint32)
+    return pad_axis(x, n, 0)
+
+
+def _ring_raw_match(f1: Features, f2: Features, group, metric: str, cfg: MatchConfig) -> Matches:
+    """Unpruned NN matching with the descriptor axis sharded over ``group``
+    (dist/ring_match.py): the multi-device leg of the dense path, where the
+    keypoint axis (one descriptor per pixel) is the long axis. The same
+    Matches as dense_raw_match, on every rank."""
+    from tpusfm_torch.dist.ring_match import ring_nn_search
+
+    n1, n2 = f1.desc.shape[0], f2.desc.shape[0]
+    cap1, cap2 = round_up(n1, group.size), round_up(n2, group.size)
+    idx, best, _ = ring_nn_search(_pad_rows(f1.desc, cap1), _pad_rows(f2.desc, cap2),
+                                  pad_axis(f2.kpts.mask.float(), cap2), group, metric=metric)
+    valid = f1.kpts.mask & (best[:n1] < BIG / 2)
+    return matches_from_nn(idx[:n1], best[:n1], valid, cfg, metric, prune=False, capacity=n1)
+
+
+def _ring_gms_match(f1: Features, f2: Features, size, group, metric: str, cfg) -> Matches:
+    """The fused dense GMS cell (dist/fused_dense.py): ring matching and the
+    GMS votes in one pass over ``group``."""
+    from tpusfm_torch.dist.fused_dense import ring_match_gms
+
+    n1, n2 = f1.desc.shape[0], f2.desc.shape[0]
+    cap1, cap2 = round_up(n1, group.size), round_up(n2, group.size)
+    idx, best, _, inl = ring_match_gms(
+        _pad_rows(f1.desc, cap1), _pad_rows(f2.desc, cap2), pad_axis(f2.kpts.mask.float(), cap2),
+        pad_axis(f1.kpts.xy, cap1), pad_axis(f2.kpts.xy, cap2), size, size, group, cfg.gms,
+        metric=metric)
+    valid = f1.kpts.mask & (best[:n1] < BIG / 2) & inl[:n1]
+    return Matches(idx1=torch.arange(n1, dtype=torch.int32, device=idx.device), idx2=idx[:n1],
+                   distance=best[:n1], mask=valid)
+
+
 def run_disparity_benchmark(left, right, gt, alg: str, density: str, disp_ratio: float,
-                            cfg: PipelineConfig = PipelineConfig(), logos_centers=None):
+                            cfg: PipelineConfig = PipelineConfig(), logos_centers=None,
+                            group=None):
     """One cell of the reference's benchmark grid (DisparityUtil.cpp:430-461)
     on (H, W) tensors, on their device.
 
     alg in {"sift", "orb", "gms", "logos"}; density in {"sparse", "dense"}.
     Dense LOGOS returns the raw matches, and sparse LOGOS runs the raw match
     it then discards, as tpusfm does. ``logos_centers`` optionally injects
-    LOGOS's vocabulary (see logos_match). Returns dict(rms, count,
+    LOGOS's vocabulary (see logos_match). ``group`` (tpusfm's ``mesh``), with
+    more than one rank: dense NN matching runs the ring matcher over it,
+    dense GMS the fused ring + vote pass, and sparse GMS the match-sharded
+    filter, every rank on the full images. Returns dict(rms, count,
     n_matches, disp, valid)."""
     h, w = left.shape
     size = (w, h)
@@ -135,18 +178,31 @@ def run_disparity_benchmark(left, right, gt, alg: str, density: str, disp_ratio:
         metric = "l2"
 
     mcfg = dataclasses.replace(cfg.match, cross_check=False)
-    if density == "dense":
+    sharded = group is not None and group.size > 1
+    if sharded and density == "dense" and alg == "gms":
+        return _cell(f1, f2, _ring_gms_match(f1, f2, size, group, metric, cfg), gt, disp_ratio)
+    if sharded and density == "dense":
+        raw = _ring_raw_match(f1, f2, group, metric, mcfg)
+    elif density == "dense":
         raw = dense_raw_match(f1, f2, metric, mcfg)
     else:
         raw = bf_match(f1.desc, f2.desc, f1.kpts.mask, f2.kpts.mask, mcfg,
                        metric=metric, prune=False, capacity=f1.capacity)
-    if alg == "gms":
+    if alg == "gms" and sharded:
+        from tpusfm_torch.dist.sharded_gms import sharded_gms_filter
+
+        matches = sharded_gms_filter(f1.kpts, f2.kpts, raw, size, size, group, cfg.gms)
+    elif alg == "gms":
         matches = gms_filter(f1.kpts, f2.kpts, raw, size, size, cfg.gms)
     elif alg == "logos" and density == "sparse":
         matches = logos_match(f1, f2, cfg.logos, centers=logos_centers)
     else:
         matches = raw
+    return _cell(f1, f2, matches, gt, disp_ratio)
 
+
+def _cell(f1: Features, f2: Features, matches: Matches, gt, disp_ratio: float) -> dict:
+    h, w = gt.shape
     disp, valid = match_disparity_image(f1.kpts, f2.kpts, matches, h, w)
     rms, n = disparity_rms(disp, valid, gt, disp_ratio)
     return {"rms": float(rms), "count": int(n), "n_matches": int(matches.count),

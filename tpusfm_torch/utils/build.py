@@ -3,8 +3,10 @@
 Each library is compiled from one source file into ``build/tpusfm_torch/``
 (gitignored) under a name keyed by the hash of the source and the flags,
 and reused while that file exists. The compiler writes to a temporary file
-that is renamed into place, so concurrent builders (test workers) never
-load a partial library.
+and its log to another, each renamed into place (``os.replace``), so
+processes that build at once (test workers, the ranks of a process group)
+never load a partial library or read a partial log; the last rename wins
+with identical content.
 """
 from __future__ import annotations
 
@@ -27,14 +29,18 @@ def build_library(src: pathlib.Path, compiler: str, flags: tuple, name: str) -> 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    fd, tmp_log = tempfile.mkstemp(suffix=".log", dir=BUILD_DIR)
+    os.close(fd)
     try:
         done = subprocess.run([compiler, *flags, "-o", tmp, str(src)], check=True,
                               capture_output=True, text=True)
-        out.with_suffix(".log").write_text(done.stdout + done.stderr)
+        pathlib.Path(tmp_log).write_text(done.stdout + done.stderr)
+        os.replace(tmp_log, out.with_suffix(".log"))
         os.replace(tmp, out)
     except subprocess.CalledProcessError as e:
         raise RuntimeError(f"{compiler} failed building {src}:\n{e.stderr}") from e
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for t in (tmp, tmp_log):
+            if os.path.exists(t):
+                os.remove(t)
     return out
