@@ -65,7 +65,13 @@ SIFT, GMS and LOGOS under torch.profiler;
      cuda:0 over gloo) against phase 15's single-device files; then a
      world-size-1 NCCL group: sharded_bundle_adjust at 8,192 / 6,
      ring_nn_search at 1 x 168750 x 168750 x 128 and parallel_pair_match on
-     phase 5's step, each against and timed beside its unsharded call.
+     phase 5's step, each against and timed beside its unsharded call;
+ 17. the pipelined two-view path: 4 micro-batches of phase 5's pair through
+     the serial stage chain, then two_view_pipelined over S = 2 and S = 4
+     spawned ranks sharing cuda:0 over gloo, each micro-batch against the
+     serial chain (n_matches equal, n_inliers within 2, R within 5 deg,
+     the pose; bit-equality printed); pairs/s, stage ms and NN launches
+     by rank (2 a micro-batch on the match rank, 0 elsewhere).
 Every time is printed beside the card's name and power limit (the first
 line). The line before the last is the kernels' JSON record (before it,
 one with the two-view, disparity, stage, multi-view, stereo, portrait and
@@ -1877,6 +1883,199 @@ def check_devices(distance, smi, cli_run, f_pair) -> dict:
     return res
 
 
+PIPE_MICRO = 4                                      # micro-batches of phase 17
+PIPE_ROOT = "build/tpusfm_torch/pipeline_smoke"     # gitignored, under the checkout
+PIPE_JOIN_S = 300
+
+
+def rotation_deg(R, R_ref) -> float:
+    """The angle of R R_ref^T in degrees, in float64 (exact near zero)."""
+    dR = R.double().cpu() @ R_ref.double().cpu().T
+    w = torch.stack([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0], dR[1, 0] - dR[0, 1]])
+    return float(np.degrees(np.arctan2(float(w.norm()) / 2, (float(torch.trace(dR)) - 1) / 2)))
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _edge_mb(y) -> float:
+    from tpusfm_torch.dist.pipeline import _flatten
+
+    return sum(t.numel() * t.element_size() for t in _flatten(y)[1]) / 1e6
+
+
+def _pipeline_rank(rank, size, port, root, focal, device):
+    """One rank of phase 17: two_view_pipelined on the pairs of
+    ``root``/pairs.npy, S = ``size`` ranks sharing ``device`` over gloo.
+    A warm-up run, then the run whose NN launches and wall time are read,
+    then pipeline_map over the same stages wrapped in timers (host clock
+    after a synchronise: ms a micro-batch of this rank's stage, and the MB
+    of its output edge). Writes s{size}_rank{rank}.npz under ``root``."""
+    import datetime
+
+    from tpusfm_torch.dist.group import close, init_group
+    from tpusfm_torch.dist.pipeline import pipeline_map
+    from tpusfm_torch.kernels import distance
+    from tpusfm_torch.sfm import two_view_pipelined, two_view_stages
+
+    group = init_group(rank, size, device, "gloo", f"tcp://localhost:{port}",
+                       timeout=datetime.timedelta(seconds=120))
+    try:
+        pairs = torch.from_numpy(np.load(f"{root}/pairs.npy")).to(group.device)
+        intr, cfg = main_config(focal, pairs.shape, group.device)
+        two_view_pipelined(pairs, intr, group, cfg)                 # warm-up
+        torch.distributed.barrier()
+        distance.launches = 0
+        t0 = time.perf_counter()
+        r = two_view_pipelined(pairs, intr, group, cfg)
+        _sync(group.device)
+        wall = time.perf_counter() - t0
+        launches = distance.launches
+
+        stages, ms, mb = two_view_stages(intr, cfg, size), [], []
+
+        def timed(x):
+            _sync(group.device)
+            t = time.perf_counter()
+            y = stages[rank](x)
+            _sync(group.device)
+            ms.append((time.perf_counter() - t) * 1e3)
+            mb.append(_edge_mb(y))
+            return y
+
+        pipeline_map([timed if i == rank else f for i, f in enumerate(stages)], pairs, group)
+        out = {"wall_s": wall, "launches": launches, "stage_ms": ms, "edge_mb": mb}
+        if rank == 0:
+            out.update({k: getattr(r, k).cpu().numpy() for k in
+                        ("R", "t", "E", "points3d", "n_matches", "n_inliers", "n_points")})
+            out["idx2"] = r.matches.idx2.cpu().numpy()
+        np.savez(f"{root}/s{size}_rank{rank}.npz", **out)
+    finally:
+        close(group)
+
+
+def main_config(focal, shape, device):
+    """The main path's operating point (phase 5): the intrinsics of images
+    of ``shape`` (..., H, W) with focal length ``focal``, and the
+    configuration (N_FEATURES SIFT features, MAX_MATCHES matches, 128
+    RANSAC hypotheses)."""
+    from tpusfm_torch.config import MatchConfig, PipelineConfig, RansacConfig, SiftConfig
+    from tpusfm_torch.types import CameraIntrinsics
+
+    h, w = shape[-2:]
+    cfg = PipelineConfig(sift=SiftConfig(max_features=N_FEATURES),
+                         match=MatchConfig(max_matches=MAX_MATCHES),
+                         ransac=RansacConfig(n_hypotheses=128))
+    return CameraIntrinsics.ideal(focal, focal, w / 2, h / 2, device), cfg
+
+
+def _spawn_pipeline(size, root, focal, device):
+    """S = ``size`` ranks of _pipeline_rank, joined within PIPE_JOIN_S;
+    returns each rank's record."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_pipeline_rank, args=(r, size, port, root, focal, device))
+             for r in range(size)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + PIPE_JOIN_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * size:
+        raise AssertionError(f"pipelined S={size}: rank exit codes {codes}")
+    return [dict(np.load(f"{root}/s{size}_rank{r}.npz")) for r in range(size)]
+
+
+def check_pipelined(smi, full_pair, device="cuda:0") -> dict:
+    """Phase 17: the pipelined two-view path. PIPE_MICRO micro-batches of
+    phase 5's pair at its operating point (2016x1512, 10k features, 500
+    matches, 128 hypotheses), micro-batch i adding i * 1e-5 to image 1, as
+    scripts/scaling_bench.py's pipeline_vs_serial_two_view does. The serial
+    stage chain (two_view_stages(intr, cfg, 2) in turn) in this process,
+    then two_view_pipelined over S = 2 and S = 4 spawned ranks sharing the
+    card over gloo (edges staged through the host). Every micro-batch
+    against the serial chain: n_matches equal, n_inliers within 2 and R
+    within 5 degrees (tpusfm's bounds, tests/test_dist.py), the pose
+    checked; whether they are bit-equal is printed. NN launches: 2 a
+    micro-batch on the rank of the match stage, 0 elsewhere."""
+    import os
+
+    from tpusfm_torch.kernels import distance
+    from tpusfm_torch.sfm import two_view_stages
+
+    g1, g2, focal = full_pair
+    pairs_np = np.stack([np.stack([g1 + i * 1e-5, g2]) for i in range(PIPE_MICRO)])
+    os.makedirs(PIPE_ROOT, exist_ok=True)
+    np.save(f"{PIPE_ROOT}/pairs.npy", pairs_np)
+    pairs = torch.from_numpy(pairs_np).to(device)
+    intr, cfg = main_config(focal, pairs.shape, device)
+    detect, geometry = two_view_stages(intr, cfg, 2)
+    geometry(detect(pairs[0]))                                        # warm-up
+    _sync(device)
+    distance.launches = 0
+    t0 = time.perf_counter()
+    refs = [geometry(detect(pairs[i])) for i in range(PIPE_MICRO)]
+    _sync(device)
+    serial_s = time.perf_counter() - t0
+    res = {"serial": {"pairs_per_s": PIPE_MICRO / serial_s, "launches": distance.launches}}
+    if distance.launches != 2 * PIPE_MICRO:
+        raise AssertionError(f"serial chain: {distance.launches} NN launches")
+    runs = {}
+    try:
+        for size in (2, 4):
+            t0 = time.perf_counter()
+            runs[size] = _spawn_pipeline(size, PIPE_ROOT, focal, device), time.perf_counter() - t0
+    finally:
+        os.remove(f"{PIPE_ROOT}/pairs.npy")           # 98 MB of inputs
+    for size, (ranks, phase_s) in runs.items():
+        got, match_rank = ranks[0], 1 if size == 2 else 2
+        launches = [int(z["launches"]) for z in ranks]
+        want = [2 * PIPE_MICRO if r == match_rank else 0 for r in range(size)]
+        if launches != want:
+            raise AssertionError(f"pipelined S={size}: NN launches by rank {launches}, want {want}")
+        bit_equal, worst = [], 0.0
+        for i, ref in enumerate(refs):
+            R = torch.from_numpy(got["R"][i]).double()
+            ang = rotation_deg(R, ref.R)
+            worst = max(worst, ang)
+            if not (int(got["n_matches"][i]) == int(ref.n_matches)
+                    and abs(int(got["n_inliers"][i]) - int(ref.n_inliers)) <= 2 and ang < 5.0):
+                raise AssertionError(f"pipelined S={size} micro-batch {i}: n_matches "
+                                     f"{int(got['n_matches'][i])}/{int(ref.n_matches)}, n_inliers "
+                                     f"{int(got['n_inliers'][i])}/{int(ref.n_inliers)}, R {ang:.3g} deg")
+            check_pose(R, torch.from_numpy(got["t"][i]), got["n_inliers"][i],
+                       f"pipelined S={size} micro-batch {i}")
+            bit_equal.append(all(np.array_equal(got[k][i], getattr(ref, k).cpu().numpy())
+                                 for k in ("R", "t", "E", "points3d", "n_inliers"))
+                             and np.array_equal(got["idx2"][i], ref.matches.idx2.cpu().numpy()))
+        wall = max(float(z["wall_s"]) for z in ranks)
+        res[f"s{size}"] = {
+            "pairs_per_s": PIPE_MICRO / wall, "launches_by_rank": launches,
+            "stage_ms_by_rank": [[float(v) for v in z["stage_ms"]] for z in ranks],
+            "edge_mb_by_rank": [float(np.mean(z["edge_mb"])) for z in ranks],
+            "bit_equal": bit_equal, "max_R_deg": worst,
+            "n_inliers": [int(v) for v in got["n_inliers"]],
+            "phase_s": phase_s}
+        print(f"[{smi}] phase 17: S={size} over gloo on one card: "
+              f"{res[f's{size}']['pairs_per_s']:.3f} pairs/s pipelined vs "
+              f"{res['serial']['pairs_per_s']:.3f} serial ({PIPE_MICRO} micro-batches); "
+              f"stage ms a micro-batch by rank "
+              f"{[round(float(np.mean(z['stage_ms'])), 1) for z in ranks]}, output edge MB "
+              f"{[round(v, 2) for v in res[f's{size}']['edge_mb_by_rank']]}; NN launches by rank "
+              f"{launches}; bit-equal to the serial chain {bit_equal}, R within {worst:.3g} deg; "
+              f"{res[f's{size}']['phase_s']:.1f} s with process start", flush=True)
+    return res
+
+
 def _free_port() -> int:
     import socket
 
@@ -1937,10 +2136,7 @@ def main():
     g1, g2, focal = render_full_pair()
     full_pair = (g1, g2, focal)
     h, w = g1.shape
-    cfg = PipelineConfig(sift=SiftConfig(max_features=N_FEATURES),
-                         match=MatchConfig(max_matches=MAX_MATCHES),
-                         ransac=RansacConfig(n_hypotheses=128))
-    intr = CameraIntrinsics.ideal(focal, focal, w / 2, h / 2, "cuda")
+    intr, cfg = main_config(focal, g1.shape, "cuda")
     imgs = torch.from_numpy(np.stack([g1, g2])).cuda()
 
     def cat(fs):
@@ -2054,12 +2250,16 @@ def main():
     t_phase = time.perf_counter()
     devices = check_devices(distance, smi, cli_run, step_pairs)
     print(f"[{smi}] phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    # Phase 17: the pipelined two-view path over 2 and 4 ranks on the card.
+    t_phase = time.perf_counter()
+    pipelined = check_pipelined(smi, full_pair)
+    print(f"[{smi}] phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     print(json.dumps({"two_view": {a: two_view[a] for a in ("gms", "logos")},
                       "disparity": grid["cells"], "stages": stages,
                       "multiview": {"sfm_seq": sfm_seq, "ba": ba, "pose_graph": pose_graph},
                       "stereo": stereo, "portrait": portrait, "calibration": calibration,
                       "cli": {k: v for k, v in cli_run.items() if k not in ("inputs", "out")},
-                      "devices": devices}),
+                      "devices": devices, "pipelined": pipelined}),
           flush=True)
 
     print(json.dumps({"kernels": [{
@@ -2078,7 +2278,10 @@ def main():
                              **{f"cli_{k}": v for k, v in cli_run["launches"].items()},
                              "ring_dense_disparity": sum(devices["rank_launches_disparity"]),
                              "ring_nccl_dense_sift": devices["nccl"]["ring_launches"],
-                             "pair_parallel": devices["nccl"]["pair_parallel_launches"]},
+                             "pair_parallel": devices["nccl"]["pair_parallel_launches"],
+                             "pipelined_serial_chain": pipelined["serial"]["launches"],
+                             "pipelined_s2": sum(pipelined["s2"]["launches_by_rank"]),
+                             "pipelined_s4": sum(pipelined["s4"]["launches_by_rank"])},
         **record, **{k: v for k, v in two_view.items() if k.startswith("gms_raw")},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,8 +8,9 @@ descriptors), and the two-view slice (bf, GMS, LOGOS), the sparse
 disparity cells, both BA solvers, the dense and CG pose graph, PnP and
 incremental multi-view SfM, StereoBM, the median blur, portrait mode (f32
 and bf16) and calibration on the card against the CPU; the ring NN search
-over two ranks sharing the card (gloo) against one nn_search call, and the
-CLI's sfm on the card.
+over two ranks sharing the card (gloo) against one nn_search call, the
+pipelined two-view path over two ranks sharing the card against the serial
+stage chain on the card, and the CLI's sfm on the card.
 
 This file imports no jax, so it runs where jax is absent:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -528,3 +529,77 @@ def test_cuda_cli_sfm(cuda_device, tmp_path, monkeypatch):
     check_pose(R, t, int(buf.getvalue().split("inliers=")[1].split()[0]), "cli sfm on the card")
     assert (tmp_path / "out" / "two_view.ply").exists()
     assert (tmp_path / "out" / "two_view_matches.png").exists()
+
+
+def _pipelined_rank(rank, port, path):
+    import datetime
+
+    import numpy as np
+
+    from tpusfm_torch.dist.group import close, init_group
+    from tpusfm_torch.sfm import two_view_pipelined
+
+    group = init_group(rank, 2, "cuda:0", "gloo", f"tcp://127.0.0.1:{port}",
+                       timeout=datetime.timedelta(seconds=120))
+    try:
+        pairs, intr, cfg = _pipelined_problem()
+        before = td.launches
+        r = two_view_pipelined(pairs, intr, group, cfg)
+        np.savez(f"{path}{rank}.npz", R=r.R.cpu().numpy(), t=r.t.cpu().numpy(),
+                 E=r.E.cpu().numpy(), points=r.points3d.cpu().numpy(),
+                 idx2=r.matches.idx2.cpu().numpy(), n_matches=r.n_matches.cpu().numpy(),
+                 n_inliers=r.n_inliers.cpu().numpy(), launches=td.launches - before)
+    finally:
+        close(group)
+
+
+def _pipelined_problem():
+    """tests/test_torch_dist.py's pipelined problem (3 micro-batches of the
+    160x160 rendered pair at tests/test_dist.py's configuration) on the
+    card."""
+    from test_torch_dist import _pipelined_problem as on_cpu
+    from tpusfm_torch.types import CameraIntrinsics
+
+    pairs, intr, cfg = on_cpu()
+    return pairs.cuda(), CameraIntrinsics(K=intr.K.cuda(), dist=intr.dist.cuda()), cfg
+
+
+@pytest.mark.cuda
+def test_cuda_two_view_pipelined_matches_serial_chain(cuda_device, tmp_path):
+    """S = 2 ranks sharing the card over gloo (edges staged through the
+    host): every micro-batch bit-equal to the serial stage chain on the
+    card (the stages are the same functions, and the path has no atomics),
+    the same result on both ranks, and the kernel's two cross-check
+    launches a micro-batch on the match rank only."""
+    import multiprocessing
+    import socket
+
+    import numpy as np
+
+    from tpusfm_torch.sfm import two_view_stages
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    path = str(tmp_path / "rank")
+    procs = [ctx.Process(target=_pipelined_rank, args=(r, port, path)) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0, 0]
+    z0, z1 = (np.load(f"{path}{r}.npz") for r in range(2))
+    assert (int(z0["launches"]), int(z1["launches"])) == (0, 6)
+    pairs, intr, cfg = _pipelined_problem()
+    detect, geometry = two_view_stages(intr, cfg, 2)
+    refs = [geometry(detect(pairs[i])) for i in range(pairs.shape[0])]
+    for k, field in (("R", "R"), ("t", "t"), ("E", "E"), ("points", "points3d"),
+                     ("n_matches", "n_matches"), ("n_inliers", "n_inliers")):
+        want = np.stack([getattr(r, field).cpu().numpy() for r in refs])
+        np.testing.assert_array_equal(z0[k], want, err_msg=k)
+        np.testing.assert_array_equal(z1[k], want, err_msg=k)
+    np.testing.assert_array_equal(z0["idx2"], np.stack([r.matches.idx2.cpu().numpy() for r in refs]))

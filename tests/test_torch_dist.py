@@ -222,6 +222,7 @@ def _suite(group, workdir):
 
     r = parallel_pair_match(t["pair_d1"], t["pair_d2"], t["pair_m1"], t["pair_m2"], group)
     out.update({f"pair_{k}": _np(v) for k, v in zip(("idx", "dist", "valid"), r)})
+    out.update(_pipeline_outputs(group))
     if os.environ.get("PIPELINES") != "1":
         return out
 
@@ -237,6 +238,71 @@ def _suite(group, workdir):
     for alg, density in DISPARITY_CELLS:
         r = run_disparity_benchmark(left, right, gt, alg, density, 4.0, group=group)
         out[f"disp_{alg}_{density}"] = np.array([r["rms"], r["count"], r["n_matches"]])
+    return out
+
+
+def _pipelined_problem():
+    """tests/test_dist.py's pipelined two-view problem (its configuration,
+    M = 3 micro-batches, micro-batch i adding i * 1e-4 to image 1) on the
+    rendered pair of tests/test_e2e.py: (pairs (3, 2, 160, 160), intr, cfg)."""
+    from chip_smoke import render_small_pair
+    from tpusfm_torch.config import MatchConfig, PipelineConfig, RansacConfig, SiftConfig
+    from tpusfm_torch.types import CameraIntrinsics
+
+    g1, g2 = render_small_pair()
+    cfg = PipelineConfig(sift=SiftConfig(max_features=256), match=MatchConfig(max_matches=128),
+                         ransac=RansacConfig(n_hypotheses=64))
+    pairs = torch.from_numpy(np.stack([np.stack([g1 + i * 1e-4, g2]) for i in range(3)]))
+    return pairs, CameraIntrinsics.ideal(160.0, 160.0, 80.0, 80.0, device="cpu"), cfg
+
+
+def _toy_stages(n):
+    """A chain of n >= 2 stages whose edges carry f32, bool, int32 and
+    uint32 tensors in tuples and, at the end, a dataclass."""
+    from tpusfm_torch.types import Matches
+
+    def first(x):
+        return x * 2, x > 2.5, (x * 3).to(torch.int32).view(torch.uint32)
+
+    def middle(e):
+        a, m, w = e
+        return a + 1, ~m, w
+
+    def last(e):
+        a, m, w = e
+        return Matches(idx1=w.view(torch.int32) + 1, idx2=a.to(torch.int32), distance=a * 0.5,
+                       mask=m)
+
+    return [first] + [middle] * (n - 2) + [last]
+
+
+_TOY_INPUTS = torch.arange(12, dtype=torch.float32).reshape(3, 4) / 3
+
+
+def _two_view_fields(r, prefix):
+    return {f"{prefix}_{k}": _np(v) for k, v in (
+        ("R", r.R), ("t", r.t), ("E", r.E), ("points", r.points3d), ("point_mask", r.point_mask),
+        ("idx1", r.matches.idx1), ("idx2", r.matches.idx2), ("distance", r.matches.distance),
+        ("mask", r.matches.mask), ("n_matches", r.n_matches), ("n_inliers", r.n_inliers),
+        ("n_points", r.n_points))}
+
+
+def _pipeline_outputs(group):
+    """two_view_pipelined on the group (S = its size), pipeline_map on the
+    toy chain, and whether a chain of another length raises."""
+    from tpusfm_torch.dist import pipeline_map
+    from tpusfm_torch.sfm import two_view_pipelined
+
+    pairs, intr, cfg = _pipelined_problem()
+    out = _two_view_fields(two_view_pipelined(pairs, intr, group, cfg), "pipe")
+    m = pipeline_map(_toy_stages(group.size), _TOY_INPUTS, group)
+    out.update(toy_idx1=_np(m.idx1), toy_idx2=_np(m.idx2), toy_distance=_np(m.distance),
+               toy_mask=_np(m.mask))
+    try:
+        pipeline_map(_toy_stages(group.size + 1), _TOY_INPUTS, group)
+        out["toy_wrong_size_raised"] = np.array(False)
+    except ValueError:
+        out["toy_wrong_size_raised"] = np.array(True)
     return out
 
 
@@ -305,7 +371,24 @@ def _chunked_ba(group, workdir):
     return {"cams": _np(c), "points": _np(p), "start": np.array(start)}
 
 
-_JOBS = {"suite": _suite, "chunked_ba": _chunked_ba}
+def _dead_stage(group, workdir):
+    """pipeline_map on the toy chain with the last stage failing at
+    micro-batch 1: every rank must end with an error."""
+    from tpusfm_torch.dist import pipeline_map
+
+    stages = _toy_stages(group.size)
+    seen = []
+
+    def failing(e):
+        seen.append(1)
+        if len(seen) == 2:
+            raise RuntimeError("stage failed")
+        return stages[-1](e)
+
+    pipeline_map(stages[:-1] + [failing], _TOY_INPUTS, group)
+
+
+_JOBS = {"suite": _suite, "chunked_ba": _chunked_ba, "dead_stage": _dead_stage}
 
 
 # ------------------------------------------------------------ parent side
@@ -592,11 +675,12 @@ def _gauge_free(cams, points):
                            ((points - c[0]) / s).ravel()])
 
 
-@functools.lru_cache(maxsize=1)
-def _tm_order_sensitivity():
-    """How far (gauge-free, float64) the single-process track-major solver
-    moves when only the order of its tracks changes: the floor for any
-    result whose sums run in another order."""
+@functools.lru_cache(maxsize=None)
+def _tm_both_orders(max_iters):
+    """The single-process track-major solver (float64) after ``max_iters``
+    LM iterations in the original track order and with the tracks
+    permuted: (gauge-free distance of the two states, costs, permuted
+    costs)."""
     from tpusfm_torch.ba.track_solver import TrackObservations, bundle_adjust_tm, to_track_major
     from tpusfm_torch.ba.tracks import Observations
     from tpusfm_torch.config import BaConfig
@@ -607,11 +691,42 @@ def _tm_order_sensitivity():
     tobs = to_track_major(Observations(xy=t["tm_xy"], cam=t["tm_cam"], pt=t["tm_pt"],
                                        mask=t["tm_m"]), n_tracks=96)
     perm = torch.from_numpy(np.random.default_rng(0).permutation(96))
-    c, p, _ = bundle_adjust_tm(t["tm_cams0"], t["tm_X0"][perm],
-                               TrackObservations(tobs.xy[perm], tobs.cam[perm], tobs.mask[perm]),
-                               t["tm_K"], t["tm_dist"], BaConfig(max_iters=8), 1)
-    rc, rp, _ = _port_single("tm64")
-    return np.abs(_gauge_free(_np(c), _np(p)[np.argsort(_np(perm))]) - _gauge_free(rc, rp)).max()
+    cfg = BaConfig(max_iters=max_iters)
+    c, p, cost = bundle_adjust_tm(t["tm_cams0"], t["tm_X0"], tobs, t["tm_K"], t["tm_dist"], cfg, 1)
+    c2, p2, cost2 = bundle_adjust_tm(t["tm_cams0"], t["tm_X0"][perm],
+                                     TrackObservations(tobs.xy[perm], tobs.cam[perm],
+                                                       tobs.mask[perm]),
+                                     t["tm_K"], t["tm_dist"], cfg, 1)
+    d = np.abs(_gauge_free(_np(c), _np(p))
+               - _gauge_free(_np(c2), _np(p2)[np.argsort(_np(perm))])).max()
+    return d, _np(cost), _np(cost2)
+
+
+def _tm_order_sensitivity():
+    """How far (gauge-free, float64) the single-process track-major solver
+    moves when only the order of its tracks changes: the floor for any
+    result whose sums run in another order. Not an amplified summation
+    order: after convergence the LM accept test (new cost < cost) meets
+    the rounding floor, and one order takes a step the other rejects
+    (about 2e-8 here; see the test below)."""
+    return _tm_both_orders(8)[0]
+
+
+def test_track_major_order_sensitivity_is_an_accept_at_the_rounding_floor():
+    """What _tm_order_sensitivity measures, iteration by iteration (run
+    with -s to see it): the solver after k = 1..8 LM iterations in both
+    track orders. Through iteration 6 the two orders agree to 1e-11
+    gauge-free (2.1e-12 at most here), so the sums are not amplified;
+    where they part later, both cost histories still agree to 1e-12
+    relative (1.9e-13 here): one order accepted a step that changed the
+    cost only at its rounding floor and the other rejected it."""
+    for k in range(1, 9):
+        d, cost, cost2 = _tm_both_orders(k)
+        print(f"iteration {k}: gauge-free {d:.3g}; costs {cost[-2:].tolist()} "
+              f"permuted {cost2[-2:].tolist()}")
+        if k <= 6:
+            assert d < 1e-11, (k, d)
+        np.testing.assert_allclose(cost2, cost, rtol=1e-12)
 
 
 @pytest.mark.parametrize("solver", ["ba", "tm"])
@@ -620,9 +735,10 @@ def test_sharded_bundle_adjust(world, solver):
     the gauge-free state (rotations, centres and points in baseline units;
     BA holds camera 0 only, so the scale is free) to 1e-10 -- for the
     track-major solver, to ten times what reordering its tracks alone moves
-    it (about 2e-8 here: its float64 result depends on summation order at
-    that level). f32 against tpusfm's sharded solver on its mesh, at its own
-    test's tolerances (tests/test_dist.py)."""
+    it (about 2e-8 here: after convergence its LM accepts or rejects steps
+    of 1e-13 in cost by the last bits of the sums, see
+    _tm_order_sensitivity). f32 against tpusfm's sharded solver on its
+    mesh, at its own test's tolerances (tests/test_dist.py)."""
     _, outs = world
     rc, rp, rcost = _port_single(f"{solver}64")
     c, p, cost = (outs[0][f"{solver}64_{k}"] for k in ("cams", "points", "costs"))
@@ -744,6 +860,71 @@ def test_parallel_two_view(world2):
 
 
 @functools.lru_cache(maxsize=1)
+def _serial_chain():
+    """The port's serial stage chain (two_view_stages(intr, cfg, 2) applied
+    in turn) on each micro-batch, stacked."""
+    from tpusfm_torch.sfm import two_view_stages
+
+    pairs, intr, cfg = _pipelined_problem()
+    detect, geometry = two_view_stages(intr, cfg, 2)
+    rs = [geometry(detect(pairs[i])) for i in range(pairs.shape[0])]
+    one = {k: [] for k in _two_view_fields(rs[0], "pipe")}
+    for r in rs:
+        for k, v in _two_view_fields(r, "pipe").items():
+            one[k].append(v)
+    return {k: np.stack(v) for k, v in one.items()}
+
+
+def test_two_view_pipelined_equals_the_serial_chain(world):
+    """S = the group's size (2: detect | match + geometry; 4: detect 1 |
+    detect 2 | match | geometry): every field of every micro-batch equal,
+    bit for bit, to the port's serial stage chain on the same pairs, on
+    every rank (test_every_rank_returns_the_same_replicated_result)."""
+    _, outs = world
+    ref = _serial_chain()
+    for k, v in ref.items():
+        np.testing.assert_array_equal(outs[0][k], v, err_msg=k)
+    assert ref["pipe_R"].shape == (3, 3, 3) and ref["pipe_idx1"].shape == (3, 128)
+    assert (ref["pipe_n_inliers"] >= 20).all() and (np.abs(ref["pipe_t"][:, 0]) > 0.98).all()
+
+
+def test_pipeline_map_on_a_toy_chain(world):
+    """pipeline_map over f32, bool, int32 and uint32 edges in tuples and a
+    dataclass: the stacked chain of each micro-batch, and ValueError for a
+    chain whose length is not the group's size."""
+    size, outs = world
+    stages = _toy_stages(size)
+    want = []
+    for i in range(_TOY_INPUTS.shape[0]):
+        y = _TOY_INPUTS[i]
+        for fn in stages:
+            y = fn(y)
+        want.append(y)
+    for k in ("idx1", "idx2", "distance", "mask"):
+        np.testing.assert_array_equal(outs[0][f"toy_{k}"],
+                                      torch.stack([getattr(w, k) for w in want]).numpy(), err_msg=k)
+    assert bool(outs[0]["toy_wrong_size_raised"])
+
+
+def test_pipeline_needs_one_rank_a_stage():
+    """Without a group (one process) only a one-stage chain runs; the
+    two-view split takes 2 or 4 stages."""
+    from tpusfm_torch.dist import pipeline_map
+    from tpusfm_torch.sfm import two_view_pipelined, two_view_stages
+
+    with pytest.raises(ValueError, match="group size"):
+        pipeline_map(_toy_stages(2), _TOY_INPUTS, None)
+    got = pipeline_map([lambda x: x * 2], _TOY_INPUTS, None)
+    assert torch.equal(got, _TOY_INPUTS * 2)
+    pairs, intr, cfg = _pipelined_problem()
+    for n in (1, 3):
+        with pytest.raises(ValueError, match="unsupported n_stages"):
+            two_view_stages(intr, cfg, n)
+    with pytest.raises(ValueError, match="unsupported n_stages"):
+        two_view_pipelined(pairs, intr, None, cfg)
+
+
+@functools.lru_cache(maxsize=1)
 def _port_sequence():
     return _sequence_outputs(None)
 
@@ -846,6 +1027,15 @@ def test_kill_and_resume_sharded_ba(tmp_path):
     assert int(got["start"]) == 2 and int(want["start"]) == 0
     np.testing.assert_array_equal(got["cams"], want["cams"])
     np.testing.assert_array_equal(got["points"], want["points"])
+
+
+def test_a_dead_stage_ends_the_pipeline_with_an_error(tmp_path):
+    """The last of 2 stages raises at micro-batch 1: both ranks exit with an
+    error (the other within the group's timeout) and none hangs."""
+    t0 = time.monotonic()
+    codes = _spawn("dead_stage", 2, tmp_path, limit=90)
+    assert None not in codes and 0 not in codes, codes
+    print(f"both ranks ended in {time.monotonic() - t0:.1f} s")
 
 
 def test_two_process_sharded_ba_matches_one_process(world):

@@ -47,7 +47,8 @@ _MODULES = [
     "tpusfm_torch.dist", "tpusfm_torch.dist.group", "tpusfm_torch.dist.ring_match",
     "tpusfm_torch.dist.sharded_gms", "tpusfm_torch.dist.fused_dense",
     "tpusfm_torch.dist.sharded_ba", "tpusfm_torch.dist.sharded_pgo",
-    "tpusfm_torch.dist.pair_parallel",
+    "tpusfm_torch.dist.pair_parallel", "tpusfm_torch.dist.pipeline", "tpusfm_torch.sfm.pipelined",
+    "tpusfm_torch.sfm.fused",
 ]
 
 
@@ -82,6 +83,8 @@ def test_no_source_of_the_port_or_chip_smoke_imports_jax_or_tpusfm():
     assert len(files) > 40 and not bad, bad
     for sub in ("cli", "dist", "viz"):
         assert any(f.parent.name == sub for f in files), sub
+    for path in ("dist/pipeline.py", "sfm/pipelined.py", "sfm/fused.py"):
+        assert root / "tpusfm_torch" / path in files, path
 
 
 @pytest.mark.parametrize("name", ["SiftConfig", "OrbConfig", "MatchConfig", "GmsConfig",

@@ -16,9 +16,11 @@ Backends:
     below stage CUDA operands through the host: one copy out and one copy
     back per collective, by design of that backend.
 
-Every ``init_process_group`` gets a timeout: a dead peer ends the run with
-an error instead of hanging it. ``group=None`` everywhere means one
-process: the helpers return their inputs, and ``shard`` the whole axis.
+Every ``init_process_group`` gets a timeout, and the point-to-point and
+broadcast helpers wait under it: a dead peer ends the run with an error
+instead of hanging it. ``group=None`` means one process: the collectives
+return their inputs, and ``shard`` the whole axis (the point-to-point
+helpers serve pipeline stages on ranks, and take a group).
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ class Group:
     size: int
     device: torch.device
     backend: str
+    timeout: datetime.timedelta = DEFAULT_TIMEOUT
 
     @property
     def staged(self) -> bool:
@@ -61,7 +64,7 @@ def init_group(rank: int, size: int, device, backend: str | None = None,
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     dist.init_process_group(backend, init_method=init_method, world_size=size, rank=rank,
                             timeout=timeout)
-    return Group(rank=rank, size=size, device=device, backend=backend)
+    return Group(rank=rank, size=size, device=device, backend=backend, timeout=timeout)
 
 
 def make_group(n: int, device="cuda", timeout: datetime.timedelta = DEFAULT_TIMEOUT):
@@ -133,9 +136,16 @@ def _wire(group: Group, t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def _back(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    t = t.to(like.device)
-    return t.view(torch.uint32) if like.dtype == torch.uint32 else t.to(like.dtype)
+def _empty_wire(group: Group, shape, dtype) -> torch.Tensor:
+    """A buffer that takes a tensor of ``shape`` and ``dtype`` as ``_wire``
+    sends it."""
+    wire = {torch.bool: torch.uint8, torch.uint32: torch.int32}.get(dtype, dtype)
+    return torch.empty(shape, dtype=wire, device="cpu" if group.staged else group.device)
+
+
+def _back(t: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
+    t = t.to(device)
+    return t.view(torch.uint32) if dtype == torch.uint32 else t.to(dtype)
 
 
 def all_reduce_sum(group: Group | None, *tensors: torch.Tensor) -> tuple:
@@ -152,7 +162,7 @@ def all_reduce_sum(group: Group | None, *tensors: torch.Tensor) -> tuple:
         dist.all_reduce(flat, op=dist.ReduceOp.SUM)
         parts = flat.split([tensors[i].numel() for i in idx])
         for i, p in zip(idx, parts):
-            out[i] = _back(p, tensors[i]).reshape(tensors[i].shape)
+            out[i] = _back(p, tensors[i].dtype, tensors[i].device).reshape(tensors[i].shape)
     return tuple(out)
 
 
@@ -164,7 +174,7 @@ def all_gather_cat(group: Group | None, t: torch.Tensor, dim: int = 0) -> torch.
     w = _wire(group, t)
     parts = [torch.empty_like(w) for _ in range(group.size)]
     dist.all_gather(parts, w)
-    return _back(torch.cat(parts, dim), t)
+    return _back(torch.cat(parts, dim), t.dtype, t.device)
 
 
 def ring_shift(group: Group | None, t: torch.Tensor) -> torch.Tensor:
@@ -178,4 +188,42 @@ def ring_shift(group: Group | None, t: torch.Tensor) -> torch.Tensor:
            dist.P2POp(dist.irecv, recv, (group.rank - 1) % group.size)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return _back(recv, t)
+    return _back(recv, t.dtype, t.device)
+
+
+def send_next(group: Group, tensors) -> list:
+    """Start sending ``tensors`` to rank + 1, in order (isend); returns the
+    pending sends for ``wait``, which hold the tensors as they travel. A
+    staged send has copied its operands to the host when this returns;
+    otherwise the caller's tensors are sent as they are, and must not be
+    written before ``wait``."""
+    return [(dist.isend(w, group.rank + 1), w) for w in (_wire(group, t) for t in tensors)]
+
+
+def wait(group: Group, pending: list) -> None:
+    """Complete the sends ``send_next`` started, each within the group's
+    timeout."""
+    for work, _ in pending:
+        work.wait(group.timeout)
+
+
+def recv_prev(group: Group, specs) -> list:
+    """Receive from rank - 1 the tensors its ``send_next`` sent, one for
+    each (shape, dtype) of ``specs``, on this rank's device."""
+    bufs = [_empty_wire(group, shape, dtype) for shape, dtype in specs]
+    for work in [dist.irecv(b, group.rank - 1) for b in bufs]:
+        work.wait(group.timeout)
+    return [_back(b, dtype, group.device) for b, (_, dtype) in zip(bufs, specs)]
+
+
+def broadcast_from(group: Group, src: int, specs, tensors=None) -> list:
+    """Rank ``src``'s ``tensors`` on every rank, on this rank's device
+    (broadcast). Every rank passes their (shape, dtype) ``specs``; only
+    ``src`` passes ``tensors``."""
+    if group.rank == src:
+        bufs = [_wire(group, t) for t in tensors]
+    else:
+        bufs = [_empty_wire(group, shape, dtype) for shape, dtype in specs]
+    for b in bufs:
+        dist.broadcast(b, src, async_op=True).wait(group.timeout)
+    return [_back(b, dtype, group.device) for b, (_, dtype) in zip(bufs, specs)]
