@@ -58,8 +58,7 @@ SIFT, GMS and LOGOS under torch.profiler;
      subcommands through tpusfm_torch.cli.main at their own defaults (ms
      and launches each; sfm's pose, sfm-seq 6/6 under 1 px, pose-graph's
      ATE, calibrate 10/10, the files of stereo, portrait, disparity and
-     match), sfm once more as `python -m tpusfm_torch.cli sfm`, and bench's
-     non-zero exit;
+     match), and sfm once more as `python -m tpusfm_torch.cli sfm`;
  16. --devices 2 on the one card: sfm-seq, pose-graph and the dense
      disparity cells through torch.distributed.run (two ranks sharing
      cuda:0 over gloo) against phase 15's single-device files; then a
@@ -71,7 +70,16 @@ SIFT, GMS and LOGOS under torch.profiler;
      spawned ranks sharing cuda:0 over gloo, each micro-batch against the
      serial chain (n_matches equal, n_inliers within 2, R within 5 deg,
      the pose; bit-equality printed); pairs/s, stage ms and NN launches
-     by rank (2 a micro-batch on the match rank, 0 elsewhere).
+     by rank (2 a micro-batch on the match rank, 0 elsewhere);
+ 18. the bench subcommand: `python -m tpusfm_torch.cli bench` at its full
+     defaults (bench.py's keys and metric, frames/s > 0, vs_baseline null
+     without cv2, >= 140 inliers, 14 launches), the BA bench (`bench
+     --ba`) with --tm at its default sizes and --skip-scaling (written to
+     build/tpusfm_torch/SCALING.json), and bench_scaling over
+     worlds of 1, 2 and 4 ranks sharing the card (every section at every
+     size, the ring's idx equal to one kernel call, NN launches by path
+     from the ranks' launch logs); the kernel against its plain version at
+     the ring's and pair-parallel matching's shapes, timed beside torch.mm.
 Every time is printed beside the card's name and power limit (the first
 line). The line before the last is the kernels' JSON record (before it,
 one with the two-view, disparity, stage, multi-view, stereo, portrait and
@@ -88,6 +96,8 @@ import time
 
 import numpy as np
 import torch
+
+from tpusfm_torch.bench.scenes import _render_surface, render_full_pair
 
 N_FEATURES = 10000
 MAX_MATCHES = 500
@@ -194,9 +204,9 @@ def edge_case(kind, B, nq, ndb, d, dtype, seed=0):
     return cast(q).contiguous(), cast(db).contiguous(), mask, expect
 
 
-def compare(distance, name, args, metric="l2", expect=None):
+def compare(distance, name, args, metric="l2", expect=None, atol=ATOL):
     """The kernel against the plain version on the same CUDA tensors: Hamming
-    exactly; L2 best and second within RTOL/ATOL and idx equal where the
+    exactly; L2 best and second within RTOL/atol and idx equal where the
     plain version's gap is clear, plus any index `expect` demands. Checks the
     kernel launched once. Returns (idx, max abs error)."""
     before = distance.launches
@@ -209,9 +219,9 @@ def compare(distance, name, args, metric="l2", expect=None):
     if metric == "hamming":
         ok = torch.equal(ki, pi) and torch.equal(kb, pb) and torch.equal(ks, ps)
     else:
-        clear = (ps - pb) > ATOL + RTOL * pb.abs()
-        ok = (torch.allclose(kb, pb, rtol=RTOL, atol=ATOL)
-              and torch.allclose(ks, ps, rtol=RTOL, atol=ATOL)
+        clear = (ps - pb) > atol + RTOL * pb.abs()
+        ok = (torch.allclose(kb, pb, rtol=RTOL, atol=atol)
+              and torch.allclose(ks, ps, rtol=RTOL, atol=atol)
               and torch.equal(ki[clear], pi[clear]))
         valid = ki >= 0
         gathered = torch.gather(args[2], -1, ki.clamp(min=0).long())
@@ -397,7 +407,7 @@ def check_kernel(distance) -> dict:
         args = (dq_.to(dtype), ddb_.to(dtype), dm_)
         compare(distance, f"dense {dtype} {shape}", args)
         dense[dtype] = time_kernel(distance, f"dense {dtype} {shape} "
-                                   f"(bound {bound_ms(*shape, dtype):.3f} ms)", args, 3)[0]
+                                   f"(bound {bound_ms(*shape, dtype):.3f} ms)", args, 3, 1)
     return {"max_abs_err": err_f32, "ms": f32[0], "plain_ms": f32[1],
             "bound_ms": bound_ms(2, 10000, 10000, 128, torch.float32),
             "bound_by": "operations", "library_ms": f32[2],
@@ -405,9 +415,11 @@ def check_kernel(distance) -> dict:
             "bf16_bound_ms": bound_ms(2, 10000, 10000, 128, torch.bfloat16),
             "bf16_library_ms": bf16[2],
             "db_splits": distance.db_splits(2, 10000, 10000, 128),
-            "dense_shape": list(shape), "dense_ms": dense[torch.float32],
+            "dense_shape": list(shape), "dense_ms": dense[torch.float32][0],
+            "dense_plain_ms": dense[torch.float32][1],
             "dense_bound_ms": bound_ms(*shape, torch.float32),
-            "dense_bf16_ms": dense[torch.bfloat16],
+            "dense_bf16_ms": dense[torch.bfloat16][0],
+            "dense_bf16_plain_ms": dense[torch.bfloat16][1],
             "dense_bf16_bound_ms": bound_ms(*shape, torch.bfloat16)}
 
 
@@ -434,57 +446,6 @@ def render_small_pair():
         return tex[ty.astype(int), tx.astype(int)]
 
     return render(0.0), render(0.5)
-
-
-def _render_surface(cam_xs, h, w, seed, x_lo, x_hi, texels=256, yaws=None):
-    """Views of the surface depth 5 + 0.8 sin(1.5 x) from cameras at
-    (cam_x, 0, 0) looking down +z, or turned by ``yaws`` (rad, towards +x)
-    about the vertical axis, with focal length 0.8255 w: a smooth random
-    texture of ``texels`` texels a world unit over x in [x_lo, x_hi], y in
-    [-3, 3], sampled bilinearly. Returns (views, f)."""
-    from scipy.ndimage import gaussian_filter, map_coordinates
-
-    rng = np.random.default_rng(seed)
-    f = 0.8255 * w
-    y_half = 3.0
-    th, tw = int(2 * y_half * texels), int((x_hi - x_lo) * texels)
-    tex = gaussian_filter(rng.random((th, tw)), 2.0)
-    tex += 0.5 * gaussian_filter(rng.random((th, tw)), 5.0)
-    tex = (tex - tex.min()) / (tex.max() - tex.min())
-    ys, xs = np.mgrid[0:h, 0:w]
-    u, v = (xs - w / 2) / f, (ys - h / 2) / f
-
-    def render(cam_x, yaw):
-        # the pixel's ray per unit of depth: (u, v) turned by the yaw
-        ax, ay = u, v
-        wx = cam_x + ax * 5.0
-        if yaw:
-            dz = np.cos(yaw) - u * np.sin(yaw)
-            ax, ay = (u * np.cos(yaw) + np.sin(yaw)) / dz, v / dz
-            # Newton on wx - cam_x - ax (5 + 0.8 sin 1.5 wx): its slope
-            # 1 - 1.2 ax cos(1.5 wx) stays above 0 while |ax| < 0.83
-            for _ in range(12):
-                wx = wx - ((wx - cam_x - ax * (5.0 + 0.8 * np.sin(1.5 * wx)))
-                           / (1.0 - 1.2 * ax * np.cos(1.5 * wx)))
-        else:
-            for _ in range(60):   # contraction factor |u| * 1.2 < 0.73
-                wx = cam_x + ax * (5.0 + 0.8 * np.sin(1.5 * wx))
-        wy = ay * (5.0 + 0.8 * np.sin(1.5 * wx))
-        tx = (wx - x_lo) / (x_hi - x_lo) * (tw - 1)
-        ty = (wy + y_half) / (2 * y_half) * (th - 1)
-        return map_coordinates(tex, [ty, tx], order=1, mode="nearest").astype(np.float32)
-
-    return [render(x, a) for x, a in zip(cam_xs, yaws or [0.0] * len(cam_xs))], f
-
-
-def render_full_pair(h=1512, w=2016, seed=0):
-    """The scene of tests/test_e2e.py at 2016x1512: a textured non-planar
-    surface (depth 5 + 0.8 sin(1.5 x)) seen by a pinhole camera with the
-    bench's focal length 0.8255 w, the second view translated +0.5 in x.
-    The texture is made at ~1 texel per pixel so SIFT finds thousands of
-    keypoints; it is sampled bilinearly. Expected pose: R = I, t = +-x."""
-    (g1, g2), f = _render_surface([0.0, 0.5], h, w, seed, -4.5, 4.5)
-    return g1, g2, f
 
 
 def render_sequence(n_views=6, h=567, w=756, step=0.3, seed=0, yaw=0.0):
@@ -1626,7 +1587,7 @@ def check_cli(distance, smi, pair) -> dict:
     phase 13), and sfm once more as `python -m tpusfm_torch.cli sfm`. Checks:
     sfm's pose, sfm-seq 6/6 under 1 px, pose-graph's ATE against the
     sfm-seq npz, calibrate 10/10 with K within 5 px, the stereo, portrait,
-    disparity and match files; bench exits non-zero. Returns ms and
+    disparity and match files (bench runs in phase 18). Returns ms and
     launches per subcommand and the outputs phase 16 compares with."""
     import os
 
@@ -1676,10 +1637,6 @@ def check_cli(distance, smi, pair) -> dict:
     if missing or len(sparse) != 4 or len(dense) != 3 or "bf_orig_matches" not in report:
         raise AssertionError(f"cli: missing outputs {missing}, cells {sorted(sparse)} "
                              f"{sorted(dense)}, report {sorted(report)}")
-    bench = subprocess.run([sys.executable, "-m", "tpusfm_torch.cli", "bench"],
-                           capture_output=True, text=True, timeout=300)
-    if bench.returncode == 0 or "item 6" not in bench.stderr:
-        raise AssertionError(f"cli bench: exit {bench.returncode}, {bench.stderr!r}")
     log = os.path.abspath(f"{CLI_ROOT}/launches_sfm.jsonl")
     if os.path.exists(log):
         os.remove(log)
@@ -2076,6 +2033,179 @@ def check_pipelined(smi, full_pair, device="cuda:0") -> dict:
     return res
 
 
+BENCH_ROOT = "build/tpusfm_torch/bench_smoke"       # gitignored, under the checkout
+BENCH_SIZES = (1, 2, 4)                             # phase 18's worlds on the one card
+
+
+def _bench_run(argv, log, timeout=600):
+    """`python -m argv` with TPUSFM_LAUNCH_LOG=log; returns (stdout lines, s)."""
+    import os
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *argv], capture_output=True, text=True,
+                       timeout=timeout, env={**os.environ, "TPUSFM_LAUNCH_LOG": log})
+    if r.returncode != 0:
+        raise AssertionError(f"python -m {' '.join(argv)} failed ({r.returncode}):\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    secs = time.perf_counter() - t0
+    print(f"{r.stdout}{r.stderr}python -m {' '.join(argv)}: {secs:.1f} s", flush=True)
+    return r.stdout.splitlines(), secs
+
+
+def _logged(log) -> list:
+    import os
+
+    return [json.loads(line) for line in open(log)] if os.path.exists(log) else []
+
+
+def _bench_kernel_shapes(distance, smi, n_pairs) -> list:
+    """The kernel against its plain version and timed beside torch.mm /
+    torch.bmm at the bench's shapes: one ring step of a world of n, (8192/n)
+    queries against a db shard of 8192/n rows x 128 f32; one rank's
+    pair-parallel matching, (8/n) pairs of 512 x 512 x 64 f32. The pairs'
+    best distances (~0.01) lie at f32's cancellation floor of descriptor
+    norms ~2,400, so there L2 is held within 16 ulps of |q|^2 + |d|^2
+    (tests/test_match.py's bound), and idx equal where the gap is clear."""
+    from tpusfm_torch.bench import scaling
+
+    q, db, m = (torch.from_numpy(a).cuda() for a in scaling.ring_inputs())
+    f1, f2, _, _ = scaling.pair_inputs(n_pairs, device="cuda")
+    rows = []
+    for n in BENCH_SIZES:
+        k, b = scaling.RING_ROWS // n, n_pairs // n
+        ring = (q[:k].contiguous(), db[:k].contiguous(), m[:k].contiguous())
+        pair = (f1.desc[:b].contiguous(), f2.desc[:b].contiguous(), f2.kpts.mask[:b].float())
+        norms = float(pair[0].pow(2).sum(-1).max() + pair[1].pow(2).sum(-1).max())
+        for path, args, shape, lib, atol in (
+                ("bench_ring_nn", ring, (1, k, k, 128), lambda a=ring: torch.mm(a[0], a[1].T),
+                 ATOL),
+                ("bench_pair_parallel", pair, (b, 512, 512, 64),
+                 lambda a=pair: torch.bmm(a[0], a[1].transpose(1, 2)),
+                 16 * float(np.spacing(np.float32(norms))))):
+            _, err = compare(distance, f"{path} n={n} {shape}", args, atol=atol)
+            ms, plain, lms = time_kernel(distance, f"[{smi}] {path} n={n} {shape}", args, 20, 5, lib)
+            bound = bound_ms(*shape, torch.float32)
+            ops_ms = 3 * 2.0 * float(np.prod(shape)) / TF32_PEAK * 1e3
+            rows.append({"path": path, "n": n, "shape": list(shape), "ms": ms, "plain_ms": plain,
+                         "library_ms": lms, "bound_ms": bound,
+                         "bound_by": "operations" if ops_ms >= bound else "bytes",
+                         "max_abs_err": err})
+    return rows
+
+
+def check_bench(distance, smi) -> dict:
+    """Phase 18: the bench subcommand, as a user runs it.
+
+    `python -m tpusfm_torch.cli bench` at its full defaults (2016x1512 pair,
+    10k features, 500 matches, 128 hypotheses, 2 warm and 5 timed steps of 2
+    pairs): its JSON line has bench.py's keys and metric, a positive value,
+    vs_baseline null without cv2, >= 140 inliers (phase 5 keeps 152 +- 3 on
+    the same pair) and the rendered pair named in "images"; 2 NN launches a
+    step. The BA bench (what `cli bench --ba` runs) with --tm at its default
+    sizes and --skip-scaling, in process: ba_single and both track-major
+    entries in build/tpusfm_torch/SCALING.json, the cost falling. bench_scaling
+    over worlds of BENCH_SIZES ranks sharing the card over gloo at tpusfm's
+    defaults: every section at every size, the ring's idx equal to one
+    kernel call on the same data, NN launches by path from the ranks'
+    launch logs. Then the kernel at the ring's and pair-parallel shapes."""
+    import argparse
+    import contextlib
+    import importlib.util
+    import io
+    import os
+
+    from tpusfm_torch.bench import scaling, two_view
+    from tpusfm_torch.io import has_reference_data
+
+    os.makedirs(BENCH_ROOT, exist_ok=True)
+    logs = {k: os.path.abspath(f"{BENCH_ROOT}/launches_{k}.jsonl") for k in ("two_view", "scaling")}
+    for log in logs.values():
+        if os.path.exists(log):
+            os.remove(log)
+    res = {}
+
+    lines, res["two_view_s"] = _bench_run(["tpusfm_torch.cli", "bench"], logs["two_view"])
+    line = json.loads(lines[-1])
+    steps = 2 + two_view.ITERS
+    tv_launches = [z["nn_search_launches"] for z in _logged(logs["two_view"])]
+    no_cv2 = importlib.util.find_spec("cv2") is None
+    if not (list(line) == ["metric", "value", "unit", "vs_baseline", "quality", "images"]
+            and line["metric"] == "two_view_sfm_frames_per_s_fullres_10k"
+            and line["unit"] == "frames/s" and line["value"] > 0
+            and (line["vs_baseline"] is None) == no_cv2
+            and line["quality"]["tpusfm"]["n_inliers"] >= 140
+            and (has_reference_data() or line["images"] == two_view.RENDERED)
+            and tv_launches == [2 * steps]):
+        raise AssertionError(f"cli bench: {line}, launches {tv_launches}")
+    res["two_view"] = line
+    res["two_view_launches"] = tv_launches[0]
+
+    serial = 2 * scaling.PIPE_MICRO * 3          # the serial chain's runs, in the parent
+    if os.path.exists(scaling.DEFAULT_OUT):
+        os.remove(scaling.DEFAULT_OUT)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        scaling.main(["--tm", "--skip-scaling"])
+    res["ba_s"] = time.perf_counter() - t0
+    print(buf.getvalue(), end="", flush=True)
+    ba = json.load(open(scaling.DEFAULT_OUT))
+    if not (json.loads(buf.getvalue().splitlines()[0]) == ba["ba_single"]
+            and ba["ba_single"]["cost_drop"] > 1 and ba["ba_single"]["backend"] == "cuda"
+            and sorted(ba["ba_track_major"]) == ["131072t_24v", "32768t_12v"]
+            and all(v["cost_drop"] > 1 and v["iters_per_s"] > 0
+                    for v in ba["ba_track_major"].values())):
+        raise AssertionError(f"bench --ba --tm --skip-scaling: {ba}")
+    res["ba"] = ba
+
+    args = argparse.Namespace(views=6, tracks=8192, iters=20, cpu=False)
+    outputs = {}
+    os.environ["TPUSFM_LAUNCH_LOG"] = logs["scaling"]
+    t0 = time.perf_counter()
+    try:
+        curve = scaling.bench_scaling(args, sizes=BENCH_SIZES, outputs=outputs)
+    finally:
+        del os.environ["TPUSFM_LAUNCH_LOG"]
+    res["scaling_s"] = time.perf_counter() - t0
+    print(f"bench_scaling over {list(BENCH_SIZES)} ranks: {res['scaling_s']:.1f} s", flush=True)
+    q, db, m = (torch.from_numpy(a).cuda() for a in scaling.ring_inputs())
+    idx = distance.nn_search_cuda(q, db, m)[0].cpu().numpy()
+    sizes = list(BENCH_SIZES)
+    pipe = curve["pipeline_vs_serial_two_view"]
+    if not (all(list(curve[k]) == sizes and min(curve[k].values()) > 0
+                for k in ("sharded_ba", "ring_nn", "pair_parallel_two_view"))
+            and list(pipe) == ["serial_1dev", "pipeline_2stage", "pipeline_4stage"]
+            and min(pipe.values()) > 0
+            and all(np.array_equal(outputs[n]["ring"][0], idx) for n in sizes)):
+        raise AssertionError(f"bench_scaling {sizes}: {curve}, ring idx equal "
+                             f"{[np.array_equal(outputs[n]['ring'][0], idx) for n in sizes]}")
+    by_path = {}
+    for z in _logged(logs["scaling"]):
+        by_path.setdefault(z["cmd"], {})[(z["n"], z["rank"])] = z["nn_search_launches"]
+    want = {"bench_ring_nn": {(n, r): 4 * n for n in sizes for r in range(n)},
+            "bench_pair_parallel": {(n, r): 8 for n in sizes for r in range(n)},
+            "bench_pipeline": {(n, r): serial if r == n // 2 else 0
+                               for n in sizes if n in (2, 4) for r in range(n)},
+            "bench_pipeline_serial": {(1, 0): serial}}
+    if by_path != want:
+        raise AssertionError(f"bench_scaling launches by path {by_path}, want {want}")
+    res["scaling"] = curve
+    res["launches"] = {"bench_two_view": res["two_view_launches"],
+                       **{k: sum(v.values()) for k, v in by_path.items()}}
+    res["kernel_shapes"] = _bench_kernel_shapes(distance, smi, 2 * max(sizes))
+    print(f"[{smi}] phase 18: cli bench {line['value']} frames/s ({line['images']}; "
+          f"{line['quality']['tpusfm']['n_inliers']} inliers, "
+          f"{line['quality']['tpusfm']['n_points']} points; vs_baseline {line['vs_baseline']}); "
+          f"bench --ba --tm: {ba['ba_single']['value']} BA iters/s, track-major "
+          f"{ {k: v['iters_per_s'] for k, v in ba['ba_track_major'].items()} } iters/s; curve over "
+          f"{sizes} ranks sharing the card (gloo but n = 1; proves the path, not a speed-up): "
+          f"{json.dumps({k: curve[k] for k in ('sharded_ba', 'ring_nn', 'pair_parallel_two_view')})} "
+          f"{json.dumps(pipe)}; NN launches by path {json.dumps(res['launches'])}; seconds: "
+          f"cli bench {res['two_view_s']:.1f} (process start included), bench --ba --tm "
+          f"{res['ba_s']:.1f}, curve {res['scaling_s']:.1f}", flush=True)
+    return res
+
+
 def _free_port() -> int:
     import socket
 
@@ -2085,6 +2215,7 @@ def _free_port() -> int:
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2254,12 +2385,18 @@ def main():
     t_phase = time.perf_counter()
     pipelined = check_pipelined(smi, full_pair)
     print(f"[{smi}] phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    # Phase 18: the bench subcommand.
+    t_phase = time.perf_counter()
+    bench = check_bench(distance, smi)
+    print(f"[{smi}] phase 18 took {time.perf_counter() - t_phase:.1f} s; the script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"two_view": {a: two_view[a] for a in ("gms", "logos")},
                       "disparity": grid["cells"], "stages": stages,
                       "multiview": {"sfm_seq": sfm_seq, "ba": ba, "pose_graph": pose_graph},
                       "stereo": stereo, "portrait": portrait, "calibration": calibration,
                       "cli": {k: v for k, v in cli_run.items() if k not in ("inputs", "out")},
-                      "devices": devices, "pipelined": pipelined}),
+                      "devices": devices, "pipelined": pipelined,
+                      "bench": {k: v for k, v in bench.items() if k != "kernel_shapes"}}),
           flush=True)
 
     print(json.dumps({"kernels": [{
@@ -2281,8 +2418,10 @@ def main():
                              "pair_parallel": devices["nccl"]["pair_parallel_launches"],
                              "pipelined_serial_chain": pipelined["serial"]["launches"],
                              "pipelined_s2": sum(pipelined["s2"]["launches_by_rank"]),
-                             "pipelined_s4": sum(pipelined["s4"]["launches_by_rank"])},
+                             "pipelined_s4": sum(pipelined["s4"]["launches_by_rank"]),
+                             **bench["launches"]},
         **record, **{k: v for k, v in two_view.items() if k.startswith("gms_raw")},
+        "bench_shapes": bench["kernel_shapes"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

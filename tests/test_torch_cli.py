@@ -101,11 +101,26 @@ def test_top_level_help_lists_the_nine_subcommands():
         assert cmd in text
 
 
-def test_bench_exits_with_its_message_and_cli_runs_as_a_module():
-    r = subprocess.run([sys.executable, "-m", "tpusfm_torch.cli", "bench"], cwd=ROOT,
+def test_bench_reaches_the_two_view_and_ba_benches(monkeypatch):
+    """bench runs tpusfm_torch.bench.two_view.main on the CLI's device, and
+    bench --ba scaling.main, with --cpu as tpusfm's CLI passes it (and on
+    the CPU whenever the CLI runs there)."""
+    from tpusfm_torch.bench import scaling, two_view
+
+    calls = []
+    monkeypatch.setattr(two_view, "main", lambda *a: calls.append(("two_view", a)))
+    monkeypatch.setattr(scaling, "main", lambda *a: calls.append(("scaling", a)))
+    cli.main(["bench"])
+    cli.main(["bench", "--ba", "--cpu"])
+    cli.main(["bench", "--ba"])
+    assert calls == [("two_view", ("cpu",)), ("scaling", (["--cpu"],)), ("scaling", (["--cpu"],))]
+
+
+def test_bench_help_runs_as_a_module():
+    r = subprocess.run([sys.executable, "-m", "tpusfm_torch.cli", "bench", "--help"], cwd=ROOT,
                        capture_output=True, text=True, timeout=120,
                        env={**os.environ, "TPUSFM_PLATFORM": "cpu"})
-    assert r.returncode != 0 and "item 6" in r.stderr, (r.returncode, r.stderr)
+    assert r.returncode == 0 and "--ba" in r.stdout and "--cpu" in r.stdout, r.stderr
 
 
 def test_without_a_card_the_cli_exits_instead_of_running_on_the_cpu(monkeypatch, scenes):

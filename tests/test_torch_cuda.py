@@ -10,7 +10,8 @@ incremental multi-view SfM, StereoBM, the median blur, portrait mode (f32
 and bf16) and calibration on the card against the CPU; the ring NN search
 over two ranks sharing the card (gloo) against one nn_search call, the
 pipelined two-view path over two ranks sharing the card against the serial
-stage chain on the card, and the CLI's sfm on the card.
+stage chain on the card, the CLI's sfm on the card, and the two-view bench
+on the card against the CPU.
 
 This file imports no jax, so it runs where jax is absent:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -603,3 +604,23 @@ def test_cuda_two_view_pipelined_matches_serial_chain(cuda_device, tmp_path):
         np.testing.assert_array_equal(z0[k], want, err_msg=k)
         np.testing.assert_array_equal(z1[k], want, err_msg=k)
     np.testing.assert_array_equal(z0["idx2"], np.stack([r.matches.idx2.cpu().numpy() for r in refs]))
+
+
+@pytest.mark.cuda
+def test_cuda_two_view_bench_matches_cpu(cuda_device, monkeypatch):
+    """The bench's bench_tpusfm on a rendered 160x120 pair at 256 features,
+    128 matches and one timed step, on the card against the CPU: n_inliers
+    and n_points within 2 (tests/test_torch_bench.py's bounds against
+    tpusfm), a positive rate and two NN launches a step (2 warm + 1)."""
+    from tpusfm_torch.bench import scenes, two_view
+
+    monkeypatch.setattr(two_view, "N_FEATURES", 256)
+    monkeypatch.setattr(two_view, "MAX_MATCHES", 128)
+    monkeypatch.setattr(two_view, "ITERS", 1)
+    g1, g2, _ = scenes.render_full_pair(h=120, w=160)
+    _, c_pts, c_inl = two_view.bench_tpusfm(g1, g2, device="cpu")
+    before = td.launches
+    fps, g_pts, g_inl = two_view.bench_tpusfm(g1, g2, device="cuda")
+    assert td.launches - before == 2 * 3
+    assert fps > 0 and abs(g_inl - c_inl) <= 2 and abs(g_pts - c_pts) <= 2, (g_inl, c_inl,
+                                                                           g_pts, c_pts)

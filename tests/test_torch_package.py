@@ -48,7 +48,8 @@ _MODULES = [
     "tpusfm_torch.dist.sharded_gms", "tpusfm_torch.dist.fused_dense",
     "tpusfm_torch.dist.sharded_ba", "tpusfm_torch.dist.sharded_pgo",
     "tpusfm_torch.dist.pair_parallel", "tpusfm_torch.dist.pipeline", "tpusfm_torch.sfm.pipelined",
-    "tpusfm_torch.sfm.fused",
+    "tpusfm_torch.sfm.fused", "tpusfm_torch.bench", "tpusfm_torch.bench.scenes",
+    "tpusfm_torch.bench.two_view", "tpusfm_torch.bench.scaling",
 ]
 
 
@@ -68,7 +69,9 @@ def test_importing_the_port_does_not_import_jax():
 
 def test_no_source_of_the_port_or_chip_smoke_imports_jax_or_tpusfm():
     """Imports inside functions too: every import statement of every module
-    of the port and of chip_smoke.py names neither jax nor tpusfm."""
+    of the port and of chip_smoke.py names neither jax nor tpusfm, nor the
+    repo's bench.py or scripts/ (the port keeps its own benchmarks), and
+    the port never imports chip_smoke."""
     import ast
     import pathlib
 
@@ -79,9 +82,11 @@ def test_no_source_of_the_port_or_chip_smoke_imports_jax_or_tpusfm():
         for node in ast.walk(ast.parse(f.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
-            bad += [(f.name, n) for n in names if n.split(".")[0] in ("jax", "jaxlib", "tpusfm")]
+            banned = ("jax", "jaxlib", "tpusfm", "bench", "scaling_bench", "scripts") + (
+                ("chip_smoke",) if f.name != "chip_smoke.py" else ())
+            bad += [(f.name, n) for n in names if n.split(".")[0] in banned]
     assert len(files) > 40 and not bad, bad
-    for sub in ("cli", "dist", "viz"):
+    for sub in ("cli", "dist", "viz", "bench"):
         assert any(f.parent.name == sub for f in files), sub
     for path in ("dist/pipeline.py", "sfm/pipelined.py", "sfm/fused.py"):
         assert root / "tpusfm_torch" / path in files, path

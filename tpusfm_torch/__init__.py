@@ -25,6 +25,8 @@ Package map:
              and collectives, the ring matcher, sharded GMS, BA and pose
              graph, pair-parallel matching
   viz/       PLY export, match and keypoint drawings (numpy rasteriser)
+  bench/     tpusfm's benchmarks: two-view frames/s, BA iterations/s and
+             the device curve, on the card
   utils/     padding helpers, conversion of shared state from numpy,
              row-wise forward-mode Jacobians, checkpoints, trajectory ATE,
              stage timing and metrics logging

@@ -9,7 +9,7 @@
   disparity  match-based disparity RMS benchmark (DisparityUtil.cpp:430-461)
   stereo     StereoBM dense disparity demo (DisparityUtil.cpp:22-49)
   portrait   synthetic-bokeh portrait mode (DisparityUtil.cpp:274-428)
-  bench      one-line JSON performance benchmark (not ported yet)
+  bench      one-line JSON performance benchmark
 
 Flags, defaults and outputs (npz keys, PLY, PNG, match_report.json, the
 printed lines) are tpusfm's. Every subcommand runs on the CUDA card;
@@ -399,8 +399,14 @@ def cmd_portrait(args):
 
 
 def cmd_bench(args):
-    sys.exit("bench: the port's benchmark is not written yet (ROADMAP, Queue 1, item 6); "
-             "tpusfm's bench.py and scripts/scaling_bench.py run on jax")
+    if args.ba:
+        from tpusfm_torch.bench import scaling
+
+        scaling.main(["--cpu"] if args.cpu or args.device == "cpu" else [])
+        return
+    from tpusfm_torch.bench import two_view
+
+    two_view.main(args.device)
 
 
 def _device():
@@ -541,7 +547,7 @@ def _log_launches(args, path):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    args.device = "cpu" if args.fn is cmd_bench else _device()
+    args.device = _device()
     args.group = None
     try:
         args.fn(args)
