@@ -79,16 +79,27 @@ SIFT, GMS and LOGOS under torch.profiler;
      worlds of 1, 2 and 4 ranks sharing the card (every section at every
      size, the ring's idx equal to one kernel call, NN launches by path
      from the ranks' launch logs); the kernel against its plain version at
-     the ring's and pair-parallel matching's shapes, timed beside torch.mm.
+     the ring's and pair-parallel matching's shapes, timed beside torch.mm;
+ 19. SIFT's per-sample descriptor path (SiftConfig(fast_descriptor=False)):
+     on phase 4's small pair the card against the CPU (masks equal, angles
+     and descriptors within PS_ANGLE_ATOL/PS_DESC_ATOL on all but
+     PS_FLIP_SHARE of the rows, the pose); on octave 0 of phase 5's pair
+     two card calls of _orientation and _descriptor, bit-equal, their ms,
+     and PS_CPU_ROWS keypoints an image against the CPU; phase 5's path
+     with it (2 launches a step, both poses, the kernel on its
+     descriptors), SIFT ms per image beside the fast path's, and whether
+     two whole SIFT calls repeat on each path.
 Every time is printed beside the card's name and power limit (the first
 line). The line before the last is the kernels' JSON record (before it,
-one with the two-view, disparity, stage, multi-view, stereo, portrait and
-calibration results); the last line is {"ok": true, "device": {...}}.
+one with the two-view, disparity, stage, multi-view, stereo, portrait,
+calibration, CLI, multi-device, pipelined, bench and per-sample SIFT
+results); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import functools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1665,21 +1676,56 @@ def check_cli(distance, smi, pair) -> dict:
             "write_inputs_s": write_s}
 
 
-def _torchrun(argv, log, timeout=600):
+def _torchrun(argvs, log, timeout=600):
     """`python -m torch.distributed.run --standalone --nproc-per-node 2 -m
-    tpusfm_torch.cli argv` on this machine's card; returns (stdout, s)."""
+    tpusfm_torch.cli argv` for each of ``argvs`` on this machine's card, all
+    started together (each run rendezvouses on its own free port); returns
+    (stdout, s) for each, s from the common start to that run's end. Every
+    run still going when one fails or the time is up is stopped."""
     import os
 
+    env = {**os.environ, "TPUSFM_LAUNCH_LOG": os.path.abspath(log)}
+    files = [(open(f"{log}.{i}.out", "w+"), open(f"{log}.{i}.err", "w+"))
+             for i in range(len(argvs))]
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                        "--nproc-per-node", "2", "-m", "tpusfm_torch.cli", *argv],
-                       capture_output=True, text=True, timeout=timeout,
-                       env={**os.environ, "TPUSFM_LAUNCH_LOG": os.path.abspath(log)})
-    if r.returncode != 0:
-        raise AssertionError(f"--devices 2 {argv[0]} failed ({r.returncode}):\n"
-                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
-    print(r.stdout, end="", flush=True)
-    return r.stdout, time.perf_counter() - t0
+    procs = [subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc-per-node", "2", "-m", "tpusfm_torch.cli", *argv],
+                              stdout=out, stderr=err, text=True, env=env)
+             for argv, (out, err) in zip(argvs, files)]
+    secs = [None] * len(procs)
+    try:
+        while None in secs:
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"--devices 2 runs not done in {timeout} s: {argvs}")
+            for i, p in enumerate(procs):
+                if secs[i] is None and p.poll() is not None:
+                    secs[i] = time.perf_counter() - t0
+                    if p.returncode != 0:
+                        out, err = (_read(f) for f in files[i])
+                        raise AssertionError(f"--devices 2 {argvs[i][0]} failed "
+                                             f"({p.returncode}):\n{out[-2000:]}\n{err[-4000:]}")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+    texts = []
+    for out, err in files:
+        texts.append(_read(out))
+        out.close()
+        err.close()
+        print(texts[-1], end="", flush=True)
+    return list(zip(texts, secs))
+
+
+def _read(f) -> str:
+    f.seek(0)
+    return f.read()
 
 
 def _rank_launches(log, cmd):
@@ -1694,8 +1740,8 @@ def _rank_launches(log, cmd):
 def check_devices(distance, smi, cli_run, f_pair) -> dict:
     """Phase 16: --devices 2 on the one card. sfm-seq, pose-graph and the
     dense disparity cells (sift, gms, orb) through torch.distributed.run,
-    the two ranks sharing cuda:0 over gloo (operands staged through the
-    host), held against phase 15's single-device run: sfm-seq registers as
+    the three runs started together, each's two ranks sharing cuda:0 over
+    gloo (operands staged through the host), held against phase 15's single-device run: sfm-seq registers as
     many views at the same error (rtol 1e-3) with the same cameras
     (rotations and centres in baseline units, 1e-4: card runs spread by
     ~3e-6, and a BA that solved each rank's half of the observations
@@ -1723,8 +1769,15 @@ def check_devices(distance, smi, cli_run, f_pair) -> dict:
     if os.path.exists(log):
         os.remove(log)
     seq = ["--images", *inp["seq"], "--calib", inp["calib"], "--devices", "2"]
+    left, right, gt = inp["stereo"]
+    runs = _torchrun([
+        ["sfm-seq", *seq, "--out", f"{out}/seq"],
+        ["pose-graph", *seq, "--ref-traj", f"{one}/seq/reconstruction.npz", "--out", f"{out}/pg"],
+        ["disparity", "--left", left, "--right", right, "--gt", gt, "--density", "dense",
+         "--algorithms", "sift", "gms", "orb", "--devices", "2", "--out", f"{out}/disparity"]],
+        log)
     res, secs = {}, {}
-    text, secs["sfm_seq"] = _torchrun(["sfm-seq", *seq, "--out", f"{out}/seq"], log)
+    (text, secs["sfm_seq"]), (_, secs["pose_graph"]), (dis_text, secs["disparity"]) = runs
     if "over gloo" not in text:
         raise AssertionError("--devices 2 on one card should run over gloo")
     reg = int(text.split("n_registered: ")[1].split()[0])
@@ -1739,9 +1792,6 @@ def check_devices(distance, smi, cli_run, f_pair) -> dict:
             and dcam < 1e-4):
         raise AssertionError(f"--devices 2 sfm-seq {res['sfm_seq']} against one device {ref}")
 
-    text, secs["pose_graph"] = _torchrun(
-        ["pose-graph", *seq, "--ref-traj", f"{one}/seq/reconstruction.npz", "--out", f"{out}/pg"],
-        log)
     a, b = np.load(f"{out}/pg/pose_graph.npz"), np.load(f"{one}/pg/pose_graph.npz")
     extent = float(np.abs(b["centers_pgo"]).max())
     dc = float(np.abs(a["centers_pgo"] - b["centers_pgo"]).max())
@@ -1751,11 +1801,7 @@ def check_devices(distance, smi, cli_run, f_pair) -> dict:
         raise AssertionError(f"--devices 2 pose-graph {res['pose_graph']} against ATE "
                              f"{float(b['ate_after'])}, extent {extent}")
 
-    left, right, gt = inp["stereo"]
-    text, secs["disparity"] = _torchrun(
-        ["disparity", "--left", left, "--right", right, "--gt", gt, "--density", "dense",
-         "--algorithms", "sift", "gms", "orb", "--devices", "2", "--out", f"{out}/disparity"], log)
-    cells = _printed_cells(text)
+    cells = _printed_cells(dis_text)
     res["disparity"] = cells
     for name, c in cells.items():
         r1 = cli_run["disparity"][name]
@@ -1824,7 +1870,8 @@ def check_devices(distance, smi, cli_run, f_pair) -> dict:
                      "ring_launches": ring_count, "pair_parallel_ms": pp_ms,
                      "pair_nn_ms": pn_ms, "pair_parallel_launches": pair_count,
                      "pair_shape": list(d1.shape)})
-    print(f"[{smi}] phase 16: --devices 2 over gloo on one card: sfm-seq {secs['sfm_seq']:.1f} s "
+    print(f"[{smi}] phase 16: --devices 2 over gloo on one card, the three runs started "
+          f"together: sfm-seq {secs['sfm_seq']:.1f} s "
           f"(cameras {dcam:.3g} from one device's, gauge-free), pose-graph "
           f"{secs['pose_graph']:.1f} s (centres {dc:.3g} apart), dense disparity "
           f"{secs['disparity']:.1f} s (rank launches {ring_launches}, cells equal); "
@@ -1911,6 +1958,35 @@ def _pipeline_rank(rank, size, port, root, focal, device):
         np.savez(f"{root}/s{size}_rank{rank}.npz", **out)
     finally:
         close(group)
+
+
+def cat_features(fs):
+    """Features concatenated along their leading (image) axis."""
+    from tpusfm_torch.types import Features, Keypoints
+
+    k = [torch.cat([getattr(f.kpts, n) for f in fs]) for n in
+         ("xy", "scale", "angle", "response", "mask")]
+    return Features(kpts=Keypoints(*k), desc=torch.cat([f.desc for f in fs]))
+
+
+def two_view_step(imgs, u, intr, cfg):
+    """N_PAIRS pairs through the full pipeline, as bench.py's step: SIFT on
+    the pair ``imgs`` (2, H, W), shifted by 1e-6 a pair, then two_view_batch."""
+    from tpusfm_torch.features.sift import sift_detect_and_compute
+    from tpusfm_torch.sfm import two_view_batch
+
+    fb = cat_features([sift_detect_and_compute(imgs + (u * N_PAIRS + p) * 1e-6, cfg.sift)
+                       for p in range(N_PAIRS)])
+    return two_view_batch(fb.index(slice(0, None, 2)), fb.index(slice(1, None, 2)), intr, cfg)
+
+
+def small_config():
+    """Phase 4's configuration for the small rendered pair."""
+    from tpusfm_torch.config import MatchConfig, PipelineConfig, RansacConfig, SiftConfig
+
+    return PipelineConfig(sift=SiftConfig(max_features=256, upsample=False),
+                          match=MatchConfig(max_matches=256),
+                          ransac=RansacConfig(n_hypotheses=128, threshold_px=2.0))
 
 
 def main_config(focal, shape, device):
@@ -2206,6 +2282,171 @@ def check_bench(distance, smi) -> dict:
     return res
 
 
+PS_STEPS = 2             # phase 19's timed steps after one warm-up step
+PS_DESC_ATOL = 1e-4      # per-sample descriptors, card against CPU
+PS_ANGLE_ATOL = 1e-4     # rad
+PS_FLIP_SHARE = 0.01     # rows allowed off those: last-bit atan2/exp/cos/sin
+                         # differences flip near-tied bins and edge samples
+PS_CPU_ROWS = 512        # keypoints of each image held against the CPU at full width
+
+
+def _off_rows(a1, a2, d1, d2):
+    """Rows whose angle or descriptor differs beyond PS_ANGLE_ATOL/PS_DESC_ATOL."""
+    ang = torch.remainder(a1.double() - a2.double() + math.pi, 2 * math.pi) - math.pi
+    return (ang.abs() > PS_ANGLE_ATOL) | ((d1 - d2).abs().amax(-1) > PS_DESC_ATOL)
+
+
+def _flips_ok(off, what) -> int:
+    n, allowed = int(off.sum()), int(PS_FLIP_SHARE * off.numel())
+    print(f"phase 19 {what}: {n} of {off.numel()} rows off (allowed {allowed})", flush=True)
+    if n > allowed:
+        raise AssertionError(f"per-sample SIFT {what}: {n} rows off, {allowed} allowed")
+    return n
+
+
+def check_per_sample_sift(distance, smi, small_pair, full_pair) -> dict:
+    """Phase 19: SIFT's per-sample descriptor path (SiftConfig(fast_descriptor
+    =False): each keypoint's own orientation histogram and trilinear
+    descriptor). On phase 4's small pair, the card against the CPU: masks
+    equal, angles and descriptors within PS_ANGLE_ATOL/PS_DESC_ATOL on all
+    but PS_FLIP_SHARE of the rows, and two_view_sfm's pose. On octave 0 of
+    phase 5's 2016x1512 pair: two card calls of _orientation and
+    _descriptor on the same gradient stacks and keypoints are bit-equal,
+    their ms, and PS_CPU_ROWS keypoints an image against the CPU. Then
+    phase 5's path with per-sample SIFT: 2 NN launches a step, both poses,
+    the kernel against its plain version on the per-sample descriptors,
+    SIFT ms per image beside the fast path's (in turns), and whether two
+    whole SIFT calls repeat bit for bit on each path."""
+    import dataclasses
+
+    from tpusfm_torch.features import scalespace as ss
+    from tpusfm_torch.features import sift
+    from tpusfm_torch.sfm import two_view_sfm
+    from tpusfm_torch.types import CameraIntrinsics
+
+    def per_sample(c):
+        return dataclasses.replace(c, sift=dataclasses.replace(c.sift, fast_descriptor=False))
+
+    out = {}
+    small = per_sample(small_config())
+    feats, res = {}, {}
+    for dev in ("cpu", "cuda"):
+        feats[dev] = [sift.sift_detect_and_compute(torch.from_numpy(g).to(dev), small.sift)
+                      for g in small_pair]
+        res[dev] = two_view_sfm(*feats[dev], CameraIntrinsics.ideal(160.0, 160.0, 80.0, 80.0, dev),
+                                "bf", cfg=small)
+    off = 0
+    for i, (fc, fg) in enumerate(zip(feats["cpu"], feats["cuda"])):
+        if not torch.equal(fg.kpts.mask.cpu(), fc.kpts.mask):
+            raise AssertionError(f"per-sample SIFT masks differ, card against CPU, view {i}")
+        m = fc.kpts.mask
+        off += _flips_ok(_off_rows(fg.kpts.angle.cpu()[m], fc.kpts.angle[m],
+                                   fg.desc.cpu()[m], fc.desc[m]), f"small view {i}, card vs CPU")
+    rc, rg = res["cpu"], res["cuda"]
+    dR = float((rg.R.cpu() - rc.R).abs().max())
+    tdot = float(rg.t.cpu() @ rc.t)
+    print(f"phase 19 small pair per-sample cuda vs cpu: n_matches {int(rg.n_matches)}/"
+          f"{int(rc.n_matches)} n_inliers {int(rg.n_inliers)}/{int(rc.n_inliers)} "
+          f"max|dR|={dR:.3g} t.t'={tdot:.6f}", flush=True)
+    if not (dR < 1e-3 and tdot > 0.999):
+        raise AssertionError("per-sample SIFT: the card's pose disagrees with the CPU's")
+    check_pose(rg.R, rg.t, rg.n_inliers, "small pair per-sample (cuda)")
+    out["small"] = {"rows_off": off, "n_inliers": [int(rg.n_inliers), int(rc.n_inliers)],
+                    "max_dR": dR, "t_dot": tdot}
+
+    g1, g2, focal = full_pair
+    intr, cfg = main_config(focal, g1.shape, "cuda")
+    ps_cfg = per_sample(cfg)
+    ps = ps_cfg.sift
+    imgs = torch.from_numpy(np.stack([g1, g2])).cuda()
+
+    # The describe stage alone on octave 0: the same inputs twice.
+    n = ps.n_octave_layers
+    gauss, dog = ss.build_octave(sift._prepare_base(imgs, ps), ps.sigma, n)
+    fx, fy, fl, _, ok = sift._select_octave(dog, ps.max_features, ps)
+    del dog
+    dx, dy = ss.gradients(gauss[:, 1:n + 1])
+    del gauss
+    sigma = ps.sigma * torch.pow(2.0, fl / n)
+    li0 = torch.round(fl).long().clamp(1, n) - 1
+    two = sift._two
+
+    def ori():
+        return sift._orientation(dx, dy, li0, fx, fy, sigma, ps)
+
+    o1, o2 = ori(), ori()
+    ang = torch.cat(o1[:2], 1)
+
+    def desc():
+        return sift._descriptor(dx, dy, two(li0), two(fx), two(fy), two(sigma), ang, ps)
+
+    d1, d2 = desc(), desc()
+    ori_equal = all(torch.equal(a, b) for a, b in zip(o1, o2))
+    desc_equal = torch.equal(d1, d2)
+    ori_ms, desc_ms = cuda_ms(ori, 3), cuda_ms(desc, 3)
+    k = PS_CPU_ROWS
+    cpu = [t.cpu() for t in (dx, dy, li0[:, :k], fx[:, :k], fy[:, :k], sigma[:, :k])]
+    oc = sift._orientation(*cpu, ps)
+    dc = sift._descriptor(*cpu[:2], *(t[:, :k].cpu() for t in (li0, fx, fy, sigma, ang)), ps)
+    off = (_off_rows(o1[0][:, :k].cpu(), oc[0], d1[:, :k].cpu(), dc)
+           | (o1[2][:, :k].cpu() != oc[2]))
+    full_off = _flips_ok(off[ok[:, :k].cpu()], "octave 0 of the full pair, card vs CPU")
+    print(f"[{smi}] phase 19 describe stage at octave 0 ({imgs.shape[-1] * 2}x"
+          f"{imgs.shape[-2] * 2}, B=2, {fx.shape[1]} keypoints an image): _orientation "
+          f"{ori_ms:.2f} ms, _descriptor {desc_ms:.2f} ms ({2 * fx.shape[1]} rows); two calls "
+          f"bit-equal: orientation {ori_equal}, descriptor {desc_equal}", flush=True)
+    if not (ori_equal and desc_equal):
+        raise AssertionError("per-sample orientation/descriptor: two card calls differ")
+    del dx, dy, d1, d2, o1, o2
+    out["describe"] = {"orientation_ms": ori_ms, "descriptor_ms": desc_ms,
+                       "bit_equal": ori_equal and desc_equal, "cpu_rows_off": full_off}
+
+    # Phase 5's path with per-sample SIFT.
+    distance.launches = 0
+    two_view_step(imgs, 10_000, intr, ps_cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [two_view_step(imgs, u, intr, ps_cfg) for u in range(PS_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = distance.launches
+    if launches != 2 * (PS_STEPS + 1):
+        raise AssertionError(f"per-sample two-view: expected {2 * (PS_STEPS + 1)} "
+                             f"kernel launches, saw {launches}")
+    r = outs[-1]
+    if not bool(torch.isfinite(r.points3d).all() and torch.isfinite(r.E).all()):
+        raise AssertionError("per-sample two-view: non-finite outputs")
+    for p in range(N_PAIRS):
+        check_pose(r.R[p], r.t[p], r.n_inliers[p], f"2016x1512 pair {p}, per-sample SIFT")
+    fb = cat_features([sift.sift_detect_and_compute(imgs, ps) for _ in range(N_PAIRS)])
+    f1, f2 = fb.index(slice(0, None, 2)), fb.index(slice(1, None, 2))
+    compare(distance, f"per-sample SIFT q, db {tuple(f1.desc.shape)}",
+            (f1.desc.contiguous(), f2.desc.contiguous(), f2.kpts.mask.float()))
+
+    def sift_ms(c):
+        return cuda_ms(lambda: sift.sift_detect_and_compute(imgs, c), 2) / 2
+
+    times = {"fast": [], "per_sample": []}
+    for name in ("fast", "per_sample", "per_sample", "fast"):
+        times[name].append(sift_ms(cfg.sift if name == "fast" else ps))
+    repeat = {}
+    for name, c in (("fast", cfg.sift), ("per_sample", ps)):
+        a, b = (sift.sift_detect_and_compute(imgs, c) for _ in range(2))
+        repeat[name] = bool(torch.equal(a.desc, b.desc) and all(
+            torch.equal(getattr(a.kpts, f), getattr(b.kpts, f))
+            for f in ("xy", "scale", "angle", "response", "mask")))
+    fps = 2.0 * N_PAIRS * PS_STEPS / dt
+    print(f"[{smi}] phase 19 per-sample SIFT at {g1.shape[1]}x{g1.shape[0]}/{N_FEATURES}: "
+          f"{times['per_sample']} ms/image against the fast path's {times['fast']} (in turns); "
+          f"two-view {fps:.3f} frames/s over {PS_STEPS} steps, {launches} launches; "
+          f"n_matches {r.n_matches.tolist()} n_inliers {r.n_inliers.tolist()}; two whole SIFT "
+          f"calls bit-equal: fast {repeat['fast']}, per-sample {repeat['per_sample']}",
+          flush=True)
+    out.update(sift_ms=times, frames_per_s=fps, launches=launches,
+               n_inliers=r.n_inliers.tolist(), n_matches=r.n_matches.tolist(), repeats=repeat)
+    return out
+
+
 def _free_port() -> int:
     import socket
 
@@ -2224,12 +2465,11 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    from tpusfm_torch.config import MatchConfig, PipelineConfig, RansacConfig, SiftConfig
     from tpusfm_torch.features.sift import sift_detect_and_compute
     from tpusfm_torch.kernels import distance
     from tpusfm_torch.match.bf import bf_match
     from tpusfm_torch.sfm import two_view_batch, two_view_sfm
-    from tpusfm_torch.types import CameraIntrinsics, Features, Keypoints
+    from tpusfm_torch.types import CameraIntrinsics
 
     t0 = time.perf_counter()
     distance.load_kernel()
@@ -2244,10 +2484,8 @@ def main():
     record = check_kernel(distance)
 
     # Phase 4: the port on the card against the port on the CPU, small pair.
-    g1, g2 = render_small_pair()
-    small = PipelineConfig(sift=SiftConfig(max_features=256, upsample=False),
-                           match=MatchConfig(max_matches=256),
-                           ransac=RansacConfig(n_hypotheses=128, threshold_px=2.0))
+    small_pair = g1, g2 = render_small_pair()
+    small = small_config()
     res = {}
     for dev in ("cpu", "cuda"):
         f1, f2 = (sift_detect_and_compute(torch.from_numpy(g).to(dev), small.sift) for g in (g1, g2))
@@ -2270,22 +2508,11 @@ def main():
     intr, cfg = main_config(focal, g1.shape, "cuda")
     imgs = torch.from_numpy(np.stack([g1, g2])).cuda()
 
-    def cat(fs):
-        k = [torch.cat([getattr(f.kpts, n) for f in fs]) for n in
-             ("xy", "scale", "angle", "response", "mask")]
-        return Features(kpts=Keypoints(*k), desc=torch.cat([f.desc for f in fs]))
-
-    def step(u):
-        """N_PAIRS pairs through the full pipeline, as bench.py's step."""
-        fb = cat([sift_detect_and_compute(imgs + (u * N_PAIRS + p) * 1e-6, cfg.sift)
-                  for p in range(N_PAIRS)])
-        return two_view_batch(fb.index(slice(0, None, 2)), fb.index(slice(1, None, 2)), intr, cfg)
-
     distance.launches = 0
-    step(10_000)
+    two_view_step(imgs, 10_000, intr, cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = [step(u) for u in range(STEPS)]
+    outs = [two_view_step(imgs, u, intr, cfg) for u in range(STEPS)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = distance.launches
@@ -2303,7 +2530,7 @@ def main():
 
     # Stage times (after the launch count was read): SIFT per image, the
     # batched match of one step, and match + geometry of one step.
-    fb = cat([sift_detect_and_compute(imgs, cfg.sift) for _ in range(N_PAIRS)])
+    fb = cat_features([sift_detect_and_compute(imgs, cfg.sift) for _ in range(N_PAIRS)])
     f1, f2 = fb.index(slice(0, None, 2)), fb.index(slice(1, None, 2))
     step_pairs = (f1.desc, f2.desc, f1.kpts.mask, f2.kpts.mask)
     n_kp = fb.kpts.mask.sum(-1).tolist()
@@ -2388,7 +2615,11 @@ def main():
     # Phase 18: the bench subcommand.
     t_phase = time.perf_counter()
     bench = check_bench(distance, smi)
-    print(f"[{smi}] phase 18 took {time.perf_counter() - t_phase:.1f} s; the script "
+    print(f"[{smi}] phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    # Phase 19: SIFT's per-sample descriptor path.
+    t_phase = time.perf_counter()
+    per_sample = check_per_sample_sift(distance, smi, small_pair, full_pair)
+    print(f"[{smi}] phase 19 took {time.perf_counter() - t_phase:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"two_view": {a: two_view[a] for a in ("gms", "logos")},
                       "disparity": grid["cells"], "stages": stages,
@@ -2396,7 +2627,8 @@ def main():
                       "stereo": stereo, "portrait": portrait, "calibration": calibration,
                       "cli": {k: v for k, v in cli_run.items() if k not in ("inputs", "out")},
                       "devices": devices, "pipelined": pipelined,
-                      "bench": {k: v for k, v in bench.items() if k != "kernel_shapes"}}),
+                      "bench": {k: v for k, v in bench.items() if k != "kernel_shapes"},
+                      "per_sample_sift": per_sample}),
           flush=True)
 
     print(json.dumps({"kernels": [{
@@ -2419,7 +2651,8 @@ def main():
                              "pipelined_serial_chain": pipelined["serial"]["launches"],
                              "pipelined_s2": sum(pipelined["s2"]["launches_by_rank"]),
                              "pipelined_s4": sum(pipelined["s4"]["launches_by_rank"]),
-                             **bench["launches"]},
+                             **bench["launches"],
+                             "two_view_bf_per_sample_sift": per_sample["launches"]},
         **record, **{k: v for k, v in two_view.items() if k.startswith("gms_raw")},
         "bench_shapes": bench["kernel_shapes"],
     }]}), flush=True)

@@ -10,7 +10,8 @@ Package map:
   io/        image decode/encode (PNG without PIL), dataset manifests,
              resize / rotate
   kernels/   the hand-written CUDA NN-search kernel + its plain torch version
-  features/  scale space, SIFT (fast-descriptor path), ORB, dense SIFT
+  features/  scale space, SIFT (fast and per-sample descriptors), ORB,
+             dense SIFT
   match/     brute-force matching with the reference's prune rules, GMS,
              k-means, LOGOS
   geometry/  undistortion, five-point RANSAC, recoverPose, triangulation,

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from tpusfm_torch.features import scalespace as ss
-from tpusfm_torch.features.sift import _grad2d, _oriented_planes
+from tpusfm_torch.features.sift import _oriented_planes
 
 _N_ORI = 8
 
@@ -35,7 +35,7 @@ def dense_sift_descriptors(img, cell: int = 4, stride: int = 1):
     Returns (H', W', 128) float32, H' = ceil(H / stride)."""
     img = img.float()
     h, w = img.shape
-    dx, dy = _grad2d(img)
+    dx, dy = ss.gradients(img)
     ori = _oriented_planes(dx[None], dy[None])[0]            # (8, H, W)
     k = _triangular_kernel(cell)
     pooled = ss.conv1d(ss.conv1d(ori, k, -2, mode="constant"), k, -1, mode="constant")

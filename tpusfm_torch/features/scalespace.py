@@ -126,3 +126,10 @@ def build_octave(base, sigma: float, n_layers: int):
         levels.append(cur)
     g = torch.stack(levels, -3)
     return g, g[..., 1:, :, :] - g[..., :-1, :, :]
+
+
+def gradients(img):
+    """Central-difference gradients (dx, dy) of (..., H, W), zero borders."""
+    dx = F.pad((img[..., :, 2:] - img[..., :, :-2]) * 0.5, (1, 1, 0, 0))
+    dy = F.pad((img[..., 2:, :] - img[..., :-2, :]) * 0.5, (0, 0, 1, 1))
+    return dx, dy

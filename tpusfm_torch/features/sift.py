@@ -1,4 +1,4 @@
-"""SIFT detect + describe (tpusfm's default fast-descriptor path).
+"""SIFT detect + describe.
 
 Replaces the cv::SIFT the reference leans on (SfM-GMS/FeatureMatchUtil.cpp:
 9-12, created with nfeatures=10000):
@@ -8,9 +8,15 @@ Replaces the cv::SIFT the reference leans on (SfM-GMS/FeatureMatchUtil.cpp:
 * Candidate selection: exact per-octave top-k on the thresholded |DoG|.
 * Subpixel refinement: gathered 3x3x3 cubes, closed-form 3x3 solves, a
   fixed number of re-localization steps.
-* Orientation and descriptor: from dense oriented-gradient planes pooled
-  once per layer (DAISY-style) and gathered at 9 orientation samples and
-  4x4 cell centres per keypoint; normalize -> clip 0.2 -> renormalize.
+* Orientation and descriptor, by the path ``SiftConfig.fast_descriptor``
+  selects, as in tpusfm:
+  - fast (the default): from dense oriented-gradient planes pooled once per
+    layer (DAISY-style) and gathered at 9 orientation samples and 4x4 cell
+    centres per keypoint;
+  - per-sample: each keypoint's own gradients, sampled nearest on a 9x9
+    grid into an n_orientation_bins histogram, and on a rotated 16x16 grid
+    soft-binned trilinearly into descriptor_width^2 x descriptor_bins bins;
+  both normalize -> clip -> renormalize.
 
 Every internal function carries a leading image axis B; the public entry
 takes (H, W) or (B, H, W). Outputs are fixed-capacity ``Features``.
@@ -166,13 +172,6 @@ def _lp_decimate2(x):
     return ss.decimate2(ss.conv1d(x, _LP3, -1, mode="constant"), -1)
 
 
-def _grad2d(img):
-    """Central-difference gradients of (..., H, W), zero borders."""
-    dx = F.pad((img[..., :, 2:] - img[..., :, :-2]) * 0.5, (1, 1, 0, 0))
-    dy = F.pad((img[..., 2:, :] - img[..., :-2, :]) * 0.5, (0, 0, 1, 1))
-    return dx, dy
-
-
 # pooled planes switch to half-res sampling above this pixel count (the two
 # big octaves of a full-res run; small octaves and test images keep exact
 # full-res pooling)
@@ -207,11 +206,17 @@ def _ori_offsets(x, y, sigma):
     return x[..., None] + taps[:, 0] * r, y[..., None] + taps[:, 1] * r
 
 
-def _orientations_from_samples(S, cfg: SiftConfig):
-    """Angles from gathered orientation samples S (B, K, 9, 8)."""
-    n = _N_PLANES
-    hist = (S * torch.as_tensor(_ORI_W, device=S.device)[:, None]).sum(-2)   # (B, K, 8)
-    hist = torch.roll(hist, 1, -1) * 0.25 + hist * 0.5 + torch.roll(hist, -1, -1) * 0.25
+def _smooth_circular(hist):
+    """One circular [1, 2, 1]/4 pass over the last axis."""
+    return torch.roll(hist, 1, -1) * 0.25 + hist * 0.5 + torch.roll(hist, -1, -1) * 0.25
+
+
+def _peak_angles(hist, cfg: SiftConfig):
+    """Angles from a smoothed orientation histogram (..., n): the first
+    maximum and the best other local maximum, each refined by a parabola
+    through its neighbours, and whether the second reaches
+    orientation_peak_ratio of the peak."""
+    n = hist.shape[-1]
 
     def pick(M, b):
         return torch.gather(M, -1, b[..., None])[..., 0]
@@ -226,11 +231,17 @@ def _orientations_from_samples(S, cfg: SiftConfig):
 
     b1 = torch.argmax(hist, -1)
     is_loc = (hist >= torch.roll(hist, 1, -1)) & (hist >= torch.roll(hist, -1, -1))
-    not_b1 = torch.arange(n, device=S.device) != b1[..., None]
+    not_b1 = torch.arange(n, device=hist.device) != b1[..., None]
     cand = torch.where(is_loc & not_b1, hist, -1.0)
     b2 = torch.argmax(cand, -1)
     second = pick(cand, b2) >= cfg.orientation_peak_ratio * hist.amax(-1)
     return interp(b1), interp(b2), second
+
+
+def _orientations_from_samples(S, cfg: SiftConfig):
+    """Angles from gathered orientation samples S (B, K, 9, 8)."""
+    hist = (S * torch.as_tensor(_ORI_W, device=S.device)[:, None]).sum(-2)   # (B, K, 8)
+    return _peak_angles(_smooth_circular(hist), cfg)
 
 
 # static 4x4 cell-center grid in cell units and its Gaussian window weights
@@ -265,11 +276,101 @@ def _descriptors_from_samples(S, angle, cfg: SiftConfig):
     i1 = torch.remainder(k + s0[..., None] + 1, n)[..., None, :].expand(S.shape)
     D = torch.gather(S, -1, i0) * (1.0 - f) + torch.gather(S, -1, i1) * f
     D = D * torch.as_tensor(_CELL_W, device=S.device)[:, None]
-    desc = D.reshape(*D.shape[:-2], -1)
+    return _normalize_clip(D.reshape(*D.shape[:-2], -1), cfg)
+
+
+def _normalize_clip(desc, cfg: SiftConfig):
+    """normalize -> clip at descriptor_clip -> renormalize, over the last axis."""
     norm = torch.clamp(torch.linalg.norm(desc, dim=-1, keepdim=True), min=1e-6)
     desc = torch.clamp(desc / norm, max=cfg.descriptor_clip)
     norm = torch.clamp(torch.linalg.norm(desc, dim=-1, keepdim=True), min=1e-6)
     return desc / norm
+
+
+_ORI_GRID = 4  # half-width of the per-sample path's (2g+1)^2 orientation grid
+_DESC_S = 16   # the per-sample descriptor's sample grid is _DESC_S x _DESC_S
+
+
+def _nearest2(dx, dy, layer, x, y):
+    """Nearest-pixel samples of two gradient stacks (B, L, H, W) on each
+    keypoint's layer: ``layer`` (B, K) indexes L, ``x`` and ``y`` (B, K, S)
+    are float coords, rounded half to even and clamped -> (gx, gy), each
+    (B, K, S). One flat-index gather per stack."""
+    B, _, h, w = dx.shape
+    xi = torch.round(x).long().clamp(0, w - 1)
+    yi = torch.round(y).long().clamp(0, h - 1)
+    flat = ((layer[..., None] * h + yi) * w + xi).reshape(B, -1)
+    return tuple(torch.gather(m.reshape(B, -1), 1, flat).reshape(x.shape) for m in (dx, dy))
+
+
+def _grid(g):
+    """(u, v) coordinates of the square grid g x g (u along x), flattened."""
+    v, u = torch.meshgrid(g, g, indexing="ij")
+    return u.reshape(-1), v.reshape(-1)
+
+
+def _orientation(dx, dy, layer, x, y, sigma, cfg: SiftConfig):
+    """Dominant orientation(s) of keypoints (B, K) from their own gradients:
+    a Gaussian-weighted 9x9 grid of radius 4.5 sigma, hard-rounded into
+    n_orientation_bins bins, smoothed twice. The histogram is a one-hot sum
+    in a fixed order (a scatter would add with float atomics on the card).
+    Returns (angle1, angle2, second_valid), each (B, K)."""
+    nbins = cfg.n_orientation_bins
+    radius = (3.0 * 1.5 * sigma)[..., None]
+    gu, gv = _grid(torch.arange(-_ORI_GRID, _ORI_GRID + 1, dtype=torch.float32,
+                                device=x.device) / _ORI_GRID)
+    gx, gy = _nearest2(dx, dy, layer, x[..., None] + gu * radius, y[..., None] + gv * radius)
+    mag = torch.sqrt(gx * gx + gy * gy)
+    wgt = torch.exp(-(gu * gu + gv * gv) * radius ** 2 / (2.0 * (1.5 * sigma[..., None]) ** 2))
+    bini = torch.remainder(torch.round(torch.atan2(gy, gx) / _TWO_PI * nbins).long(), nbins)
+    onehot = bini[..., None] == torch.arange(nbins, device=x.device)
+    hist = torch.where(onehot, (mag * wgt)[..., None], 0.0).sum(-2)
+    return _peak_angles(_smooth_circular(_smooth_circular(hist)), cfg)
+
+
+def _spatial_weights(cu, cv, d: int):
+    """(d*d, S) bilinear weights of samples at cell-unit coords (cu, cv) on
+    the d x d cell centres (row-major cells); zero off the grid."""
+    ub, vb = cu + d / 2 - 0.5, cv + d / 2 - 0.5
+    u0, v0 = torch.floor(ub), torch.floor(vb)
+    fu, fv = ub - u0, vb - v0
+    cells = torch.arange(d * d, device=cu.device)[:, None]
+    W = torch.zeros(d * d, cu.shape[0], device=cu.device)
+    for du in (0, 1):
+        for dv in (0, 1):
+            uu, vv = u0.long() + du, v0.long() + dv
+            ok = (uu >= 0) & (uu < d) & (vv >= 0) & (vv < d)
+            wt = (fu if du else 1 - fu) * (fv if dv else 1 - fv)
+            W = W + torch.where(ok & (vv * d + uu == cells), wt, 0.0)
+    return W
+
+
+def _descriptor(dx, dy, layer, x, y, sigma, angle, cfg: SiftConfig):
+    """Descriptors of keypoints (B, N) at ``angle``: a rotated 16x16 sample
+    grid of cell width descriptor_scale_factor * sigma, soft-binned
+    trilinearly into descriptor_width^2 cells x descriptor_bins orientations
+    (samples off the cells dropped), normalize -> clip -> renormalize.
+    Only the orientation bin depends on the data, so each sample becomes a
+    soft one-hot over orientations, contracted with the constant spatial
+    weights by one matmul: a fixed summation order, no scatter.
+    -> (B, N, d*d*n)."""
+    d, n = cfg.descriptor_width, cfg.descriptor_bins
+    cu, cv = _grid((torch.arange(_DESC_S, dtype=torch.float32, device=x.device) + 0.5)
+                   / _DESC_S * d - d / 2)
+    ca, sa = torch.cos(angle)[..., None], torch.sin(angle)[..., None]
+    cell = (cfg.descriptor_scale_factor * sigma)[..., None]
+    gx, gy = _nearest2(dx, dy, layer, x[..., None] + (cu * ca - cv * sa) * cell,
+                       y[..., None] + (cu * sa + cv * ca) * cell)
+    w = torch.sqrt(gx * gx + gy * gy) * torch.exp(-(cu * cu + cv * cv) / (0.5 * d * d))
+    obin = torch.remainder(torch.atan2(gy, gx) - angle[..., None], _TWO_PI) / _TWO_PI * n
+    o0 = torch.floor(obin)
+    fo = obin - o0
+    o0 = o0.long()
+    k = torch.arange(n, device=x.device)
+    soft = (torch.where(torch.remainder(o0, n)[..., None] == k, (w * (1 - fo))[..., None], 0.0)
+            + torch.where(torch.remainder(o0 + 1, n)[..., None] == k, (w * fo)[..., None], 0.0))
+    desc = torch.matmul(_spatial_weights(cu, cv, d), soft)      # (B, N, d*d, n)
+    return _normalize_clip(desc.reshape(*desc.shape[:-2], d * d * n), cfg)
 
 
 def _select_octave(dog, k_oct: int, cfg: SiftConfig):
@@ -301,27 +402,24 @@ def _select_octave(dog, k_oct: int, cfg: SiftConfig):
     return fx, fy, fl, contrast, ok
 
 
-def _describe_octave(gauss, fx, fy, fl, contrast, ok, octave_scale: float, cfg: SiftConfig):
-    """Orientation + descriptors for refined candidates of one octave,
-    layer by layer: each layer's gradient planes are pooled once, gathered
-    for every keypoint, kept where the keypoint lives on that layer, then
-    freed. Returns per-octave (xy, sigma, angle, response, desc, mask) with
-    capacity 2 * k_oct (a second copy for the second orientation)."""
+def _two(v):
+    """The keypoint axis twice: one copy for each orientation."""
+    return torch.cat([v, v], 1)
+
+
+def _describe_pooled(gauss, fx, fy, li0, sigma_oct, cfg: SiftConfig):
+    """The fast path, layer by layer: each layer's gradient planes are
+    pooled once, gathered for every keypoint, kept where the keypoint lives
+    on that layer, then freed. Returns (angle1, angle2, second_valid, desc)."""
     n_layers = cfg.n_octave_layers
     h, w = gauss.shape[-2:]
-    sigma_oct = cfg.sigma * torch.pow(2.0, fl / n_layers)      # octave pixel units
-    li0 = torch.round(fl).long().clamp(1, n_layers) - 1
-
-    def two(v):
-        return torch.cat([v, v], 1)
-
-    li2 = two(li0)
+    li2 = _two(li0)
     stride = 2 if h * w >= _POOL_STRIDE_MIN_PX else 1
     inv = 1.0 / stride
     sx_o, sy_o = _ori_offsets(fx, fy, sigma_oct)
     a1 = torch.zeros_like(fx)
     a2 = torch.zeros_like(fx)
-    second = torch.zeros_like(ok)
+    second = torch.zeros_like(fx, dtype=torch.bool)
     B, kN = fx.shape
     S_d = fx.new_zeros(B, 2 * kN, _CELLS.shape[0], _N_PLANES)
     ang12_sel = fx.new_zeros(B, 2 * kN)
@@ -329,7 +427,7 @@ def _describe_octave(gauss, fx, fy, fl, contrast, ok, octave_scale: float, cfg: 
         sigma_l = cfg.sigma * 2.0 ** ((l + 1) / n_layers)
         r_ori = int(round(3.0 * sigma_l))
         r_desc = int(round(cfg.descriptor_scale_factor * sigma_l))
-        dx, dy = _grad2d(gauss[:, l + 1])
+        dx, dy = ss.gradients(gauss[:, l + 1])
         if stride > 1:
             # aggregate the gradient field to the half grid before binning;
             # the 1 px pre-smoothing is far inside the >= 6 px pool radius
@@ -346,16 +444,39 @@ def _describe_octave(gauss, fx, fy, fl, contrast, ok, octave_scale: float, cfg: 
         a2 = torch.where(sel, a2_l, a2)
         second = torch.where(sel, sec_l, second)
         ang12_l = torch.cat([a1_l, a2_l], 1)
-        sx_d, sy_d = _desc_offsets(two(fx), two(fy), two(sigma_oct), ang12_l, cfg)
+        sx_d, sy_d = _desc_offsets(_two(fx), _two(fy), _two(sigma_oct), ang12_l, cfg)
         sel2 = li2 == l
         S_d = torch.where(sel2[..., None, None], _take2d(P_desc, sx_d * inv, sy_d * inv), S_d)
         ang12_sel = torch.where(sel2, ang12_l, ang12_sel)
-    desc = _descriptors_from_samples(S_d, ang12_sel, cfg)
+    return a1, a2, second, _descriptors_from_samples(S_d, ang12_sel, cfg)
+
+
+def _describe_per_sample(gauss, fx, fy, li0, sigma_oct, cfg: SiftConfig):
+    """The per-sample path: each keypoint's own gradients on its layer
+    (the layers 1..n_octave_layers that keypoints live on). Returns
+    (angle1, angle2, second_valid, desc)."""
+    dx, dy = ss.gradients(gauss[:, 1:cfg.n_octave_layers + 1])
+    a1, a2, second = _orientation(dx, dy, li0, fx, fy, sigma_oct, cfg)
+    desc = _descriptor(dx, dy, _two(li0), _two(fx), _two(fy), _two(sigma_oct),
+                       torch.cat([a1, a2], 1), cfg)
+    return a1, a2, second, desc
+
+
+def _describe_octave(gauss, fx, fy, fl, contrast, ok, octave_scale: float, cfg: SiftConfig):
+    """Orientation + descriptors for refined candidates of one octave, by
+    the path cfg.fast_descriptor selects. Returns per-octave (xy, sigma,
+    angle, response, desc, mask) with capacity 2 * k_oct (a second copy for
+    the second orientation)."""
+    n_layers = cfg.n_octave_layers
+    sigma_oct = cfg.sigma * torch.pow(2.0, fl / n_layers)      # octave pixel units
+    li0 = torch.round(fl).long().clamp(1, n_layers) - 1
+    describe = _describe_pooled if cfg.fast_descriptor else _describe_per_sample
+    a1, a2, second, desc = describe(gauss, fx, fy, li0, sigma_oct, cfg)
 
     xy = torch.stack([fx, fy], -1) * octave_scale
     sig = sigma_oct * octave_scale
     resp = contrast.abs()
-    return (two(xy), two(sig), torch.cat([a1, a2], 1), two(resp), desc,
+    return (_two(xy), _two(sig), torch.cat([a1, a2], 1), _two(resp), desc,
             torch.cat([ok, ok & second], 1))
 
 
