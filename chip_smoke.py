@@ -34,16 +34,19 @@ SIFT, GMS and LOGOS under torch.profiler;
   9. the sfm-seq path (incremental_sfm, "bf", pair span 3) on a seeded
      rendered rail of 6 views at 756x567 with 3000 SIFT features: 6 of 6
      registered under 1 px, 24 launches, SIFT and stage times, the kernel
-     at 1 x 3000 x 3000 x 128 against its plain version and torch.mm; the
-     synthetic 4-view sequence on the card against the CPU;
+     at 1 x 3000 x 3000 x 128 against its plain version and torch.mm; two
+     runs with cameras and points bit for bit equal; the synthetic 4-view
+     sequence on the card against the CPU;
  10. bundle adjustment on seeded synthetic problems: flat and track-major at
      8,192 tracks / 6 views (agreeing), track-major at 131,072 / 24; ms per
-     LM iteration, peak memory, kernels per iteration; the flat solver run
-     twice in the default and in the deterministic mode: does it repeat?
+     LM iteration, peak memory, kernels per iteration; each solver run twice
+     in the default mode, bit for bit equal (the solvers sum in an order
+     fixed by the data), the flat one also in the deterministic mode;
  11. the pose-graph path (build_sequence_graph over phase 9's features: 10
      edges, 20 launches; odometry, dense and CG LM, ATE against the rail),
      the same on a rail turned 0.02 rad a view, then dense against CG on a
-     synthetic 1,024-node loop, the dense solver twice in each mode;
+     synthetic 1,024-node loop, each solver twice in the default mode, bit
+     for bit equal, the dense one also in the deterministic mode;
  12. the stereo path: stereo_bm with the reference's StereoBM config at
      450x375 (against the known disparity and the CPU) and at the robot
      pair's 2594x1131, median_blur at both sizes (bit-equal to the CPU),
@@ -62,9 +65,10 @@ SIFT, GMS and LOGOS under torch.profiler;
  16. --devices 2 on the one card: sfm-seq, pose-graph and the dense
      disparity cells through torch.distributed.run (two ranks sharing
      cuda:0 over gloo) against phase 15's single-device files; then a
-     world-size-1 NCCL group: sharded_bundle_adjust at 8,192 / 6,
-     ring_nn_search at 1 x 168750 x 168750 x 128 and parallel_pair_match on
-     phase 5's step, each against and timed beside its unsharded call;
+     world-size-1 NCCL group: sharded_bundle_adjust at 8,192 / 6 (twice,
+     bit for bit equal), ring_nn_search at 1 x 168750 x 168750 x 128 and
+     parallel_pair_match on phase 5's step, each against and timed beside
+     its unsharded call;
  17. the pipelined two-view path: 4 micro-batches of phase 5's pair through
      the serial stage chain, then two_view_pipelined over S = 2 and S = 4
      spawned ranks sharing cuda:0 over gloo, each micro-batch against the
@@ -891,7 +895,8 @@ def check_sfm_seq(distance, smi) -> tuple[dict, list, dict]:
     756x567, 3000 SIFT features, "bf", pair span 3, 8192 tracks, 1000
     matches a pair, default BaConfig) on a seeded rendered rail: 6 of 6
     views registered under 1 px, finite cameras and points, 24 NN-search
-    launches; SIFT ms per view and the host-clock stage times. Then the
+    launches, the warm-up's and the timed run's cameras and points bit for
+    bit equal; SIFT ms per view and the host-clock stage times. Then the
     port on the card against the port on the CPU on the synthetic 4-view
     sequence. Returns (record, features, sequence)."""
     from tpusfm_torch.ba import multiview
@@ -916,7 +921,7 @@ def check_sfm_seq(distance, smi) -> tuple[dict, list, dict]:
         return multiview.incremental_sfm(feats, sizes, intr, cfg, algo="bf", pair_span=3,
                                          max_tracks=8192)
 
-    run()                                                   # warm-up
+    warm = run()                                            # warm-up
     torch.cuda.synchronize()
     distance.launches = 0
     with _StageClock(multiview, ["match_features", "build_tracks", "bundle_adjust"]) as clock:
@@ -950,6 +955,12 @@ def check_sfm_seq(distance, smi) -> tuple[dict, list, dict]:
                              f"{m['reproj_error_px']} px")
     if not (np.isfinite(rec["cams"]).all() and np.isfinite(rec["points"]).all()):
         raise AssertionError("sfm-seq: non-finite cameras or points")
+    out["repeats"] = all(np.array_equal(warm[k], rec[k]) for k in ("cams", "points"))
+    print(f"sfm-seq: two runs {'equal' if out['repeats'] else 'differ'} bit for bit (cameras "
+          f"{np.abs(warm['cams'] - rec['cams']).max():.3g}, points "
+          f"{np.abs(warm['points'] - rec['points']).max():.3g} apart)", flush=True)
+    if not out["repeats"]:
+        raise AssertionError("sfm-seq: two runs on the same features differ")
     out["busy"] = profile_stage(f"[{smi}] incremental_sfm (one sequence)", run, reps=1)
 
     # the port on the card against the port on the CPU, synthetic sequence
@@ -1042,41 +1053,59 @@ def ba_gauge_free(cams):
     return torch.cat([cams[:, :3], c / c[1].norm()], 1)
 
 
-def repeat_runs(run, smi, name) -> tuple[dict, dict]:
-    """run() -> a tuple of tensors, twice in the default mode and twice
-    under torch.use_deterministic_algorithms(True, warn_only=True), which
-    switches index_add_ and index_put_(accumulate=True) to deterministic
-    kernels (an op with none warns; the warnings are reported). Per mode:
-    whether the two runs are equal bit for bit, their largest difference
-    and ms per run; returns (that record, the outputs of each mode). No
-    default changes outside this call."""
+def repeat_runs(run, smi, name, iters, modes=("default", "deterministic")) -> tuple[dict, dict]:
+    """run() -> a tuple of tensors (an LM solve of ``iters`` iterations),
+    twice in each of ``modes`` after a warm-up in each: the default mode,
+    and torch.use_deterministic_algorithms(True, warn_only=True), the
+    caller's process-wide switch, kept as the yardstick for ms (an op with
+    no deterministic kernel warns; the warnings are reported). The timed
+    runs go in turns (default, deterministic, deterministic, default), so
+    the host's drift does not favour one mode. Per mode: whether the two
+    runs are equal bit for bit, their largest difference, ms per run and
+    per LM iteration; returns (that record, the outputs of each mode). The
+    solvers sum in an order fixed by the data, so the default mode must
+    repeat: raises if it does not. No default changes outside this call."""
     import warnings
 
-    rec, outs = {}, {}
-    for mode in ("default", "deterministic"):
+    runs, ms, caught = ({m: [] for m in modes} for _ in range(3))
+
+    def in_mode(mode, timed):
         torch.use_deterministic_algorithms(mode == "deterministic", warn_only=True)
         try:
-            with warnings.catch_warnings(record=True) as caught:
+            with warnings.catch_warnings(record=True) as seen:
                 warnings.simplefilter("always")
-                run()                                               # warm-up
-                runs, ms = [], []
-                for _ in range(2):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    runs.append(run())
-                    torch.cuda.synchronize()
-                    ms.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
         finally:
             torch.use_deterministic_algorithms(False)
-        diff = max(float((a - b).abs().max()) for a, b in zip(*runs))
-        rec[mode] = {"repeats": all(torch.equal(a, b) for a, b in zip(*runs)), "max_diff": diff,
-                     "ms": ms, "warnings": sorted({str(w.message)[:160] for w in caught})}
-        outs[mode] = runs
+        caught[mode] += [str(w.message)[:160] for w in seen]
+        if timed:
+            runs[mode].append(out)
+            ms[mode].append((time.perf_counter() - t0) * 1e3)
+
+    for mode in modes:
+        in_mode(mode, False)                                        # warm-up
+    for mode in modes + modes[::-1]:
+        in_mode(mode, True)
+    rec = {}
+    for mode in modes:
+        a, b = runs[mode]
+        diff = max(float((x - y).abs().max()) for x, y in zip(a, b))
+        t = ms[mode]
+        rec[mode] = {"repeats": all(torch.equal(x, y) for x, y in zip(a, b)), "max_diff": diff,
+                     "ms": t, "ms_per_iter": [m / iters for m in t],
+                     "warnings": sorted(set(caught[mode]))}
         same = "equal" if rec[mode]["repeats"] else "differ"
         print(f"[{smi}] {name}, {mode} mode: two runs {same} bit for bit (largest difference "
-              f"{diff:.3g}), {ms[0]:.1f} / {ms[1]:.1f} ms; warnings {rec[mode]['warnings']}",
+              f"{diff:.3g}), {t[0]:.1f} / {t[1]:.1f} ms, {t[0] / iters:.3f} / "
+              f"{t[1] / iters:.3f} ms per LM iteration; warnings {rec[mode]['warnings']}",
               flush=True)
-    return rec, outs
+    if not rec["default"]["repeats"]:
+        raise AssertionError(f"{name}: two default-mode runs differ by up to "
+                             f"{rec['default']['max_diff']:.3g}")
+    return rec, runs
 
 
 def check_ba(smi) -> dict:
@@ -1085,8 +1114,9 @@ def check_ba(smi) -> dict:
     track-major at 8,192 tracks / 6 views (they must agree as in
     tests/test_ba.py: costs rtol 1e-3, cameras rtol 1e-2 atol 2e-3, here
     free of the scale gauge), track-major at 131,072 tracks / 24 views (S = 3);
-    20 LM iterations, the cost falls and ends under 0.5 px. Then the flat
-    solver at 8,192 / 6 twice in each mode of repeat_runs."""
+    20 LM iterations, the cost falls and ends under 0.5 px. Then each of the
+    three repeat_runs: two default-mode solves bit for bit equal, and the
+    flat solver's also in the deterministic mode, the yardstick for ms."""
     from tpusfm_torch.ba.solver import bundle_adjust, mean_reprojection_error
     from tpusfm_torch.config import BaConfig
     from tpusfm_torch.ba.synthetic import synth_ba_problem
@@ -1113,6 +1143,9 @@ def check_ba(smi) -> dict:
                 raise AssertionError(f"{name} did not converge")
             res[s] = (r, cams, costs)
             out[f"{s}_{tracks}x{views}"] = r
+            modes = ("default", "deterministic") if s == "flat" else ("default",)
+            out[f"repeat_{s}_{tracks}x{views}"], _ = repeat_runs(
+                lambda: run(BaConfig(max_iters=20)), smi, name, 20, modes)
         if len(res) == 2:
             (_, c1, k1), (_, c2, k2) = res["flat"], res["track_major"]
             g1, g2 = ba_gauge_free(c1), ba_gauge_free(c2)
@@ -1122,14 +1155,11 @@ def check_ba(smi) -> dict:
                   f"the scale gauge), costs rel {dk:.3g}", flush=True)
             # tests/test_ba.py's tolerances, on the cameras free of the scale
             # gauge: camera 0 is the only gauge fixed, so the scale drifts
-            # with the order of float atomics (raw cameras moved 2e-3 to
-            # 8.2e-3 apart across runs on the card)
+            # with the order of the sums, which differs between the solvers
+            # (raw cameras were 2e-3 to 8.2e-3 apart on the card)
             if not (torch.allclose(g2, g1, rtol=1e-2, atol=2e-3)
                     and torch.allclose(k2, k1, rtol=1e-3, atol=1e-3)):
                 raise AssertionError("track-major BA disagrees with the flat solver")
-    K, dist, cams0, X0, obs = synth_ba_problem(6, 8192)
-    out["repeat_flat_8192x6"], _ = repeat_runs(
-        lambda: bundle_adjust(cams0, X0, obs, K, dist, BaConfig()), smi, "BA flat 8,192 / 6")
     return out
 
 
@@ -1143,8 +1173,9 @@ def check_pose_graph(distance, smi, feats, seq) -> dict:
     odometry, in tpusfm as in the port: PERF.md). Then the synthetic
     1,024-node loop of tests/test_pgo.py (chords every 64 and 256 nodes):
     both solvers meet that test's convergence criteria, the dense one ends
-    at or below the CG's cost; ms per LM iteration of each; the dense one
-    twice in each mode of repeat_runs."""
+    at or below the CG's cost; ms per LM iteration of each; each twice in
+    the default mode of repeat_runs, bit for bit equal, and the dense one
+    also in the deterministic mode, the yardstick for ms."""
     from tpusfm_torch.features.sift import sift_detect_and_compute
     from tpusfm_torch.pgo import (PgoConfig, chain_odometry, optimize_pose_graph,
                                   optimize_pose_graph_cg)
@@ -1239,15 +1270,18 @@ def check_pose_graph(distance, smi, feats, seq) -> dict:
             and d["cost_last"] <= 1.05 * g["cost_last"] + 1e-6):
         raise AssertionError(f"pose graph {n} nodes: CG or dense does not converge")
     out[f"loop_{n}"] = res | {"ate_odometry": ate0}
-    rep, runs = repeat_runs(lambda: optimize_pose_graph(Ri, ti, ei, ej, Zr, Zt, w, cfg=cfg), smi,
-                            f"pose graph dense {n} nodes")
-    for mode, pair in runs.items():
-        rep[mode]["ate"] = [float(((t - tg) ** 2).sum(-1).mean().sqrt()) for _, t, _ in pair]
-        rep[mode]["cost_last"] = [float(c[-1]) for _, _, c in pair]
-    print(f"pose graph dense {n} nodes, cost and ATE of the two runs: default "
-          f"{rep['default']['cost_last']} {rep['default']['ate']}, deterministic "
-          f"{rep['deterministic']['cost_last']} {rep['deterministic']['ate']}", flush=True)
-    out[f"loop_{n}"]["repeat_dense"] = rep
+    for name, solve in (("dense", optimize_pose_graph), ("cg", optimize_pose_graph_cg)):
+        modes = ("default", "deterministic") if name == "dense" else ("default",)
+        rep, runs = repeat_runs(lambda: solve(Ri, ti, ei, ej, Zr, Zt, w, cfg=cfg), smi,
+                                f"pose graph {name} {n} nodes", cfg.max_iters, modes)
+        for mode, pair in runs.items():
+            rep[mode]["ate"] = [float(((t - tg) ** 2).sum(-1).mean().sqrt()) for _, t, _ in pair]
+            rep[mode]["cost_last"] = [float(c[-1]) for _, _, c in pair]
+        print(f"pose graph {name} {n} nodes, cost and ATE of the two runs in the fixed order: "
+              f"{rep['default']['cost_last']} {rep['default']['ate']}"
+              + (f"; deterministic mode {rep['deterministic']['cost_last']} "
+                 f"{rep['deterministic']['ate']}" if "deterministic" in rep else ""), flush=True)
+        out[f"loop_{n}"][f"repeat_{name}"] = rep
     return out
 
 
@@ -1838,6 +1872,10 @@ def check_devices(distance, smi, cli_run, f_pair) -> dict:
         dba = float((ba_gauge_free(c1) - ba_gauge_free(c2)).abs().max())
         if not (dba < 1e-2 and abs(float(k1[-1]) - float(k2[-1])) <= 1e-3 * float(k1[-1])):
             raise AssertionError(f"sharded BA (NCCL, 1 rank) off the unsharded solver: {dba}")
+        # the all-reduce over a fixed world keeps the solve's fixed order
+        sba_repeats = all(torch.equal(a, b) for a, b in zip(sba(), (c2, p2, k2)))
+        if not sba_repeats:
+            raise AssertionError("sharded BA (NCCL, 1 rank): two runs differ")
 
         lg, rg = (torch.from_numpy(x).cuda() for x in render_stereo_pair()[:2])
         f1, f2 = dense_features(lg), dense_features(rg)
@@ -1866,7 +1904,8 @@ def check_devices(distance, smi, cli_run, f_pair) -> dict:
     res.update(seconds=secs, rank_launches_disparity=ring_launches,
                nccl={"ba_ms_per_iter": ba_ms, "sharded_ba_ms_per_iter": sba_ms,
                      "ba_device_per_iter": ba_dev, "sharded_ba_device_per_iter": sba_dev,
-                     "ba_gauge_free_diff": dba, "ring_ms": ring_ms, "nn_search_ms": nn_ms,
+                     "ba_gauge_free_diff": dba, "sharded_ba_repeats": sba_repeats,
+                     "ring_ms": ring_ms, "nn_search_ms": nn_ms,
                      "ring_launches": ring_count, "pair_parallel_ms": pp_ms,
                      "pair_nn_ms": pn_ms, "pair_parallel_launches": pair_count,
                      "pair_shape": list(d1.shape)})
@@ -1876,7 +1915,8 @@ def check_devices(distance, smi, cli_run, f_pair) -> dict:
           f"{secs['pose_graph']:.1f} s (centres {dc:.3g} apart), dense disparity "
           f"{secs['disparity']:.1f} s (rank launches {ring_launches}, cells equal); "
           f"world-size-1 NCCL: BA 8192/6 ms/iter sharded {[round(v, 3) for v in sba_ms]} vs "
-          f"unsharded {[round(v, 3) for v in ba_ms]} (CUDA events, in turns); per iteration "
+          f"unsharded {[round(v, 3) for v in ba_ms]} (CUDA events, in turns; two sharded "
+          f"runs bit for bit equal); per iteration "
           f"under torch.profiler, sharded {sba_dev['device_ms']:.3f} device ms in "
           f"{sba_dev['activities']:g} activities, of which NCCL {sba_dev['nccl_ms']:.4f} ms in "
           f"{sba_dev['nccl_activities']:g}, vs unsharded {ba_dev['device_ms']:.3f} ms in "

@@ -7,7 +7,9 @@ and in its dense modes on a rendered stereo pair's dense ORB and dense SIFT
 descriptors), and the two-view slice (bf, GMS, LOGOS), the sparse
 disparity cells, both BA solvers, the dense and CG pose graph, PnP and
 incremental multi-view SfM, StereoBM, the median blur, portrait mode (f32
-and bf16) and calibration on the card against the CPU; the ring NN search
+and bf16) and calibration on the card against the CPU; both BA solvers,
+both pose-graph solvers and incremental_sfm twice in the default mode, bit
+for bit equal; the ring NN search
 over two ranks sharing the card (gloo) against one nn_search call, the
 pipelined two-view path over two ranks sharing the card against the serial
 stage chain on the card, the CLI's sfm on the card, and the two-view bench
@@ -252,8 +254,9 @@ def test_cuda_bundle_adjust_matches_cpu(cuda_device, which):
     """Both BA solvers on the card against the CPU on a seeded synthetic
     problem (600 tracks, 5 views): converged costs within rtol 1e-3,
     cameras within rtol 1e-2 / atol 2e-3, under 0.5 px (phase 10's and
-    tests/test_ba.py's tolerances; the card's float atomics make iterates
-    differ in their last bits, and the free scale gauge drifts with them)."""
+    tests/test_ba.py's tolerances; the card's matmuls and reductions add in
+    another order than the CPU's, so iterates differ in their last bits,
+    and the free scale gauge drifts with them)."""
     from tpusfm_torch.ba.solver import bundle_adjust, mean_reprojection_error
     from tpusfm_torch.ba.synthetic import synth_ba_problem
     from tpusfm_torch.ba.track_solver import bundle_adjust_tm, to_track_major
@@ -280,8 +283,9 @@ def test_cuda_pose_graph_matches_cpu(cuda_device, solver):
     """The dense and CG pose graph on the card against the CPU on
     tests/test_pgo.py's 12-node noisy loop (closure trusted 10x): final
     costs within rtol 1e-3 and positions within 5e-3 (both reach the
-    optimum; the card's float atomics change the iterates' last bits); the
-    closure halves the drift on both."""
+    optimum; the card's reductions add in another order than the CPU's,
+    which changes the iterates' last bits); the closure halves the drift on
+    both."""
     from chip_smoke import noisy_loop_problem
     from tpusfm_torch.pgo import PgoConfig, optimize_pose_graph, optimize_pose_graph_cg
 
@@ -301,6 +305,49 @@ def test_cuda_pose_graph_matches_cpu(cuda_device, solver):
     (tc, cc), (tg_, cg) = res["cpu"], res["cuda"]
     torch.testing.assert_close(cg[-1], cc[-1], rtol=1e-3, atol=1e-7)
     torch.testing.assert_close(tg_, tc, rtol=0, atol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["flat", "track_major", "dense", "cg", "incremental_sfm"])
+def test_cuda_solvers_repeat_in_default_mode(cuda_device, solver):
+    """Each solver twice on the card in the default mode (no
+    torch.use_deterministic_algorithms): the outputs bit for bit equal, as
+    tpusfm's are. Their segment sums run in an order fixed by the data
+    (tpusfm_torch/utils/segment.py), not by the card's scheduling."""
+    import numpy as np
+
+    from chip_smoke import noisy_loop_problem, synthetic_sequence_features
+    from tpusfm_torch.ba.multiview import incremental_sfm
+    from tpusfm_torch.ba.solver import bundle_adjust
+    from tpusfm_torch.ba.synthetic import synth_ba_problem
+    from tpusfm_torch.ba.track_solver import bundle_adjust_tm, to_track_major
+    from tpusfm_torch.config import BaConfig
+    from tpusfm_torch.pgo import PgoConfig, optimize_pose_graph, optimize_pose_graph_cg
+
+    if solver in ("flat", "track_major"):
+        K, dist, cams0, X0, obs = synth_ba_problem(6, 4096, device=cuda_device)
+        tobs = to_track_major(obs, 4096)
+
+        def run():
+            if solver == "flat":
+                return bundle_adjust(cams0, X0, obs, K, dist, BaConfig())
+            return bundle_adjust_tm(cams0, X0, tobs, K, dist, BaConfig())
+    elif solver in ("dense", "cg"):
+        _, (R0, t0), (ei, ej, Zr, Zt) = noisy_loop_problem(n=256, seed=7, noise=0.01,
+                                                           chords=(16, 64), device=cuda_device)
+        solve = optimize_pose_graph if solver == "dense" else optimize_pose_graph_cg
+
+        def run():
+            return solve(R0, t0, ei, ej, Zr, Zt, cfg=PgoConfig(cg_iters=64, huber_delta=1e4))
+    else:
+        feats = synthetic_sequence_features(device=cuda_device)
+
+        def run():
+            rec = incremental_sfm(*feats, algo="bf")
+            return tuple(torch.from_numpy(np.asarray(rec[k])) for k in ("cams", "points"))
+    first, second = run(), run()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b), float((a - b).abs().max())
 
 
 @pytest.mark.cuda

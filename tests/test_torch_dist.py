@@ -173,6 +173,35 @@ def _inputs():
 
 # -------------------------------------------------------- rank-side checks
 
+def _repeat_outputs(group, t):
+    """The four sharded solvers twice each in f32 over this world, with
+    every output of run k under "rep{k}_"."""
+    from tpusfm_torch.ba.track_solver import to_track_major
+    from tpusfm_torch.ba.tracks import Observations
+    from tpusfm_torch.config import BaConfig
+    from tpusfm_torch.dist.sharded_ba import sharded_bundle_adjust, sharded_bundle_adjust_tm
+    from tpusfm_torch.dist.sharded_pgo import (sharded_optimize_pose_graph,
+                                               sharded_optimize_pose_graph_cg)
+    from tpusfm_torch.pgo import PgoConfig
+
+    obs = Observations(xy=t["ba_xy"], cam=t["ba_cam"], pt=t["ba_pt"], mask=t["ba_m"])
+    tobs = to_track_major(Observations(xy=t["tm_xy"], cam=t["tm_cam"], pt=t["tm_pt"],
+                                       mask=t["tm_m"]), n_tracks=96)
+    pgo = [t[f"pgo_{k}"] for k in ("R", "t", "ei", "ej", "Zr", "Zt", "w")]
+    cfg, pcfg = BaConfig(max_iters=8), PgoConfig(max_iters=8, cg_iters=64)
+    out = {}
+    for k in (1, 2):
+        runs = {"ba": sharded_bundle_adjust(t["ba_cams0"], t["ba_X0"], obs, t["ba_K"],
+                                            t["ba_dist"], group, cfg, 1),
+                "tm": sharded_bundle_adjust_tm(t["tm_cams0"], t["tm_X0"], tobs, t["tm_K"],
+                                               t["tm_dist"], group, cfg, 1),
+                "pgo": sharded_optimize_pose_graph(*pgo, group, pcfg),
+                "cg": sharded_optimize_pose_graph_cg(*pgo, group, pcfg)}
+        out.update({f"rep{k}_{name}_{i}": _np(v) for name, r in runs.items()
+                    for i, v in enumerate(r)})
+    return out
+
+
 def _suite(group, workdir):
     """Every sharded function of the port on this rank; returns its outputs."""
     from chip_smoke import render_stereo_pair, synthetic_sequence_features
@@ -219,6 +248,7 @@ def _suite(group, workdir):
     out.update(pgo_R=_np(R), pgo_t=_np(tt), pgo_c=_np(c))
     R, tt, c = sharded_optimize_pose_graph_cg(*pgo, group, PgoConfig(max_iters=8, cg_iters=64))
     out.update(cg_R=_np(R), cg_t=_np(tt), cg_c=_np(c))
+    out.update(_repeat_outputs(group, t))
 
     r = parallel_pair_match(t["pair_d1"], t["pair_d2"], t["pair_m1"], t["pair_m2"], group)
     out.update({f"pair_{k}": _np(v) for k, v in zip(("idx", "dist", "valid"), r)})
@@ -680,7 +710,7 @@ def _tm_both_orders(max_iters):
     """The single-process track-major solver (float64) after ``max_iters``
     LM iterations in the original track order and with the tracks
     permuted: (gauge-free distance of the two states, costs, permuted
-    costs)."""
+    costs, the gauge-free state in the original order)."""
     from tpusfm_torch.ba.track_solver import TrackObservations, bundle_adjust_tm, to_track_major
     from tpusfm_torch.ba.tracks import Observations
     from tpusfm_torch.config import BaConfig
@@ -697,36 +727,52 @@ def _tm_both_orders(max_iters):
                                      TrackObservations(tobs.xy[perm], tobs.cam[perm],
                                                        tobs.mask[perm]),
                                      t["tm_K"], t["tm_dist"], cfg, 1)
-    d = np.abs(_gauge_free(_np(c), _np(p))
-               - _gauge_free(_np(c2), _np(p2)[np.argsort(_np(perm))])).max()
-    return d, _np(cost), _np(cost2)
+    g = _gauge_free(_np(c), _np(p))
+    d = np.abs(g - _gauge_free(_np(c2), _np(p2)[np.argsort(_np(perm))])).max()
+    return d, _np(cost), _np(cost2), g
 
 
 def _tm_order_sensitivity():
     """How far (gauge-free, float64) the single-process track-major solver
-    moves when only the order of its tracks changes: the floor for any
-    result whose sums run in another order. Not an amplified summation
-    order: after convergence the LM accept test (new cost < cost) meets
-    the rounding floor, and one order takes a step the other rejects
-    (about 2e-8 here; see the test below)."""
-    return _tm_both_orders(8)[0]
+    moves on the LM step it accepts at iteration 8, which changes its cost
+    only at the rounding floor: the floor for any result whose sums run in
+    another order. Not an amplified summation order: after convergence the
+    LM accept test (new cost < cost) meets the rounding floor, and another
+    order may take such a step where this one rejects it, or reject it
+    where this one takes it (about 2e-8 here; see the test below).
+
+    The floor is a property of that one iterate: it holds only while
+    iteration 8 is such an accept, so that is asserted here, and a change
+    that moves the accept to another iteration fails here, not in the
+    sharded test."""
+    cost = _tm_both_orders(8)[1]
+    step = np.abs(_tm_both_orders(8)[3] - _tm_both_orders(7)[3]).max()
+    assert cost[-1] < cost[-2] and (cost[-2] - cost[-1]) / cost[-1] < 1e-12, cost[-2:]
+    assert 1e-10 < step < 1e-6, step
+    return step
 
 
 def test_track_major_order_sensitivity_is_an_accept_at_the_rounding_floor():
     """What _tm_order_sensitivity measures, iteration by iteration (run
     with -s to see it): the solver after k = 1..8 LM iterations in both
     track orders. Through iteration 6 the two orders agree to 1e-11
-    gauge-free (2.1e-12 at most here), so the sums are not amplified;
-    where they part later, both cost histories still agree to 1e-12
-    relative (1.9e-13 here): one order accepted a step that changed the
-    cost only at its rounding floor and the other rejected it."""
+    gauge-free (2.2e-12 at most here), so the sums are not amplified, and
+    both cost histories agree to 1e-12 relative. Iteration 7 rejects its
+    step and iteration 8 accepts one that moves the state by about 2e-8
+    while the cost falls by under 1e-12 relative (5e-15 here): an accept
+    at the rounding floor, which the sharded solver's sums may take one
+    iteration earlier or not at all (tests/test_torch_dist.py's 2 and 4
+    ranks)."""
     for k in range(1, 9):
-        d, cost, cost2 = _tm_both_orders(k)
+        d, cost, cost2, _ = _tm_both_orders(k)
         print(f"iteration {k}: gauge-free {d:.3g}; costs {cost[-2:].tolist()} "
               f"permuted {cost2[-2:].tolist()}")
         if k <= 6:
             assert d < 1e-11, (k, d)
         np.testing.assert_allclose(cost2, cost, rtol=1e-12)
+    step = _tm_order_sensitivity()       # asserts iteration 8's accept at the floor
+    print(f"the step accepted at iteration 8: gauge-free {step:.3g}, cost "
+          f"{cost[-2]!r} -> {cost[-1]!r}")
 
 
 @pytest.mark.parametrize("solver", ["ba", "tm"])
@@ -755,6 +801,18 @@ def test_sharded_bundle_adjust(world, solver):
         np.testing.assert_allclose(c, jc, atol=2e-3)
         np.testing.assert_allclose(p, jp, atol=2e-2)
     assert cost[-1] < cost[0]
+
+
+def test_sharded_solvers_repeat_over_a_fixed_world(world):
+    """Both sharded BA solvers and both sharded pose graphs, twice each in
+    f32 over the same world: bit for bit equal. Each rank sums its shard in
+    the solvers' fixed order, and the all-reduce over a fixed world adds
+    the ranks' sums in a fixed order too."""
+    _, outs = world
+    rep = {k[len("rep1_"):]: v for k, v in outs[0].items() if k.startswith("rep1_")}
+    assert len(rep) == 12
+    for k, v in rep.items():
+        np.testing.assert_array_equal(outs[0][f"rep2_{k}"], v, err_msg=k)
 
 
 @pytest.mark.parametrize("solver", ["pgo", "cg"])

@@ -7,9 +7,12 @@ The port of tpusfm's flat solver (the one ``incremental_sfm`` runs):
   once: dR/drvec once per camera, the camera-frame -> pixel Jacobian by
   forward mode.
 * Camera blocks U, point blocks V, cross blocks W and the gradients are
-  segment sums over the observation axis (``index_add_``). W is dense,
-  (P, V, 6, 3), keyed by pt * V + cam: the solver for a handful of views
-  (ba/track_solver.py scales past it).
+  segment sums over the observation axis in an order fixed by the data
+  (utils/segment.py; plans built once per solve, so card runs repeat bit
+  for bit): a one-hot matmul over the cameras, sorted segments over the
+  points and over W's keys. W is dense, (P, V, 6, 3), keyed by
+  pt * V + cam: the solver for a handful of views (ba/track_solver.py
+  scales past it).
 * S = U - W V^-1 W^T and the reduced camera solve are einsums and one small
   dense solve; points back-substitute by batched closed-form 3x3 inverses.
 * The LM loop runs a fixed number of iterations; accept/reject and the
@@ -21,12 +24,15 @@ The port of tpusfm's flat solver (the one ``incremental_sfm`` runs):
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from tpusfm_torch.ba.tracks import Observations
 from tpusfm_torch.config import BaConfig
 from tpusfm_torch.geometry.projection import distort, project_points, rodrigues
 from tpusfm_torch.utils.jacobian import rowwise_jacobian
+from tpusfm_torch.utils.segment import OneHotPlan, SegmentPlan
 
 
 def _residuals(cams, X, cam, xy, K, dist):
@@ -103,23 +109,50 @@ def chain_block_one(cams, R, dRdw, cam_id, pt3, xy, m, K, dist, delta):
             torch.nan_to_num(r) * w[..., None])
 
 
-def build_normal_blocks(cams, points, obs: Observations, K, dist, delta, reduce_fn=None):
+@dataclasses.dataclass(frozen=True)
+class NormalPlans:
+    """The fixed-order segment sums of build_normal_blocks for one set of
+    observations: over cameras, over points, and over W's keys
+    pt * V + cam."""
+
+    cams: OneHotPlan
+    points: SegmentPlan
+    cross: SegmentPlan
+
+
+def normal_plans(obs: Observations, n_cams: int, n_points: int,
+                 dtype: torch.dtype = torch.float32) -> NormalPlans:
+    """Plans for obs's live rows; the keys stay fixed across LM iterations,
+    so bundle_adjust builds them once per call. Live observations hold each
+    W key at most once (a track sees a view once: build_tracks drops
+    conflicting observations), so W's sum is a gather of one row a key;
+    masked rows, which share keys (padding is point 0 in view 0), are left
+    out of every plan."""
+    cam, pt = obs.cam.long(), obs.pt.long()
+    return NormalPlans(cams=OneHotPlan(cam, n_cams, obs.mask, dtype),
+                       points=SegmentPlan(pt, n_points, obs.mask),
+                       cross=SegmentPlan(pt * n_cams + cam, n_points * n_cams, obs.mask))
+
+
+def build_normal_blocks(cams, points, obs: Observations, K, dist, delta, reduce_fn=None,
+                        plans: NormalPlans | None = None):
     """Accumulate (U, Vp, W, g_c, g_p, cost) for the current linearization.
 
     Shapes: U (V,6,6); Vp (P,3,3); W (P,V,6,3); g_c (V,6); g_p (P,3).
     Every output is a segment sum over observations (over all shards with
-    ``reduce_fn``)."""
+    ``reduce_fn``), in the order of ``plans`` (built here when None)."""
     Vn, Pn = cams.shape[0], points.shape[0]
-    cam, pt = obs.cam.long(), obs.pt.long()
+    if plans is None:
+        plans = normal_plans(obs, Vn, Pn, cams.dtype)
     R, dRdw = cam_rotations(cams)
-    A, B, r = chain_block_one(cams, R, dRdw, cam, points[pt], obs.xy, obs.mask, K, dist, delta)
+    A, B, r = chain_block_one(cams, R, dRdw, obs.cam, points[obs.pt.long()], obs.xy, obs.mask,
+                              K, dist, delta)
 
-    z = cams.new_zeros
-    U = z(Vn, 6, 6).index_add_(0, cam, torch.einsum("oik,oil->okl", A, A))
-    Vp = z(Pn, 3, 3).index_add_(0, pt, torch.einsum("oik,oil->okl", B, B))
-    W = z(Pn * Vn, 6, 3).index_add_(0, pt * Vn + cam, torch.einsum("oik,oil->okl", A, B))
-    g_c = z(Vn, 6).index_add_(0, cam, -torch.einsum("oik,oi->ok", A, r))
-    g_p = z(Pn, 3).index_add_(0, pt, -torch.einsum("oik,oi->ok", B, r))
+    U = plans.cams.sum(torch.einsum("oik,oil->okl", A, A))
+    Vp = plans.points.sum(torch.einsum("oik,oil->okl", B, B))
+    W = plans.cross.sum(torch.einsum("oik,oil->okl", A, B))
+    g_c = plans.cams.sum(-torch.einsum("oik,oi->ok", A, r))
+    g_p = plans.points.sum(-torch.einsum("oik,oi->ok", B, r))
     cost = compute_cost(cams, points, obs, K, dist, delta)
     out = (U, Vp, W.reshape(Pn, Vn, 6, 3), g_c, g_p, cost)
     return out if reduce_fn is None else reduce_fn(*out)
@@ -204,10 +237,11 @@ def bundle_adjust(cams, points, obs: Observations, K, dist,
     summing over the shards (every process then takes the same steps)."""
     delta = cfg.huber_delta
     lam = torch.tensor(cfg.init_lambda, dtype=cams.dtype, device=cams.device)
+    plans = normal_plans(obs, cams.shape[0], points.shape[0], cams.dtype)
     costs = []
     for _ in range(cfg.max_iters):
         U, Vp, W, g_c, g_p, cost = build_normal_blocks(cams, points, obs, K, dist, delta,
-                                                       reduce_fn)
+                                                       reduce_fn, plans)
         dc, dp = schur_solve(U, Vp, W, g_c, g_p, lam, n_fixed_cams)
         new_cost = compute_cost(cams + dc, points + dp, obs, K, dist, delta, reduce_fn)
         accept = new_cost < cost

@@ -8,14 +8,18 @@ slots and every normal-equation quantity is an array over (P, S, ...):
 * A (P,S,2,6), B (P,S,2,3), r (P,S,2): the flat solver's chain-rule blocks;
 * V_p (P,3,3) and g_p (P,3): reductions over the slot axis, no scatter;
 * W = A^T B (P,S,6,3), M = W V_p^-1;
-* U (V,6,6) and g_c (V,6): segment sums keyed by the slot's camera;
-* S_cam = U - sum_p W_p V_p^-1 W_p^T needs only intra-track slot pairs: one
-  einsum into (P,S,S,6,6), summed by ``index_add_`` keyed by
-  cam[:, s] * V + cam[:, t] -- O(P*S^2) work and memory, not O(P*V^2).
+* U (V,6,6), g_c (V,6) and M g_p (V,6): segment sums keyed by the slot's
+  camera, one one-hot matmul each, as tpusfm has them;
+* S_cam = U - sum_p W_p V_p^-1 W_p^T needs only intra-track slot pairs,
+  keyed by cam[:, s] * V + cam[:, t]: a sorted plan over those keys gathers
+  each key's (M_s, W_t) rows, and their products M_s W_t^T are summed over
+  the plan's padded groups -- O(P*S^2) work and memory, not O(P*V^2).
 
-tpusfm writes the same math as track-minor lane lists and one-hot matmul
-segment sums, a layout for the TPU's vector lanes and matrix unit; the
-semantics (Huber IRLS, damping, gauge fixing) are the flat solver's.
+Every sum runs in an order fixed by the data (utils/segment.py; the plans
+are built once per solve), so card runs repeat bit for bit. tpusfm writes
+the same math as track-minor lane lists and one-hot matmul segment sums, a
+layout for the TPU's vector lanes and matrix unit; the semantics (Huber
+IRLS, damping, gauge fixing) are the flat solver's.
 
 With the track axis sharded over processes (tpusfm_torch/dist/sharded_ba.py)
 ``reduce_fn`` sums the reduced camera system, its rhs and the cost over the
@@ -33,6 +37,7 @@ from tpusfm_torch.ba.solver import (_huber_cost, _residuals, block_diag, cam_rot
                                     next_lambda, solve_cameras)
 from tpusfm_torch.ba.tracks import Observations
 from tpusfm_torch.config import BaConfig
+from tpusfm_torch.utils.segment import OneHotPlan, SegmentPlan, with_zero_row
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,32 +108,58 @@ def tm_cost(cams, points, tobs: TrackObservations, K, dist, delta, reduce_fn=Non
     return cost if reduce_fn is None else reduce_fn(cost)[0]
 
 
+@dataclasses.dataclass(frozen=True)
+class SchurPlans:
+    """The fixed-order camera sums of tm_normal_and_schur: over each live
+    slot's camera, and over each pair of live slots of a track, keyed by
+    cam[:, s] * V + cam[:, t] (entry (p*S + s)*S + t)."""
+
+    cams: OneHotPlan
+    pairs: SegmentPlan
+
+
+def schur_plans(tobs: TrackObservations, n_cams: int,
+                dtype: torch.dtype = torch.float32) -> SchurPlans:
+    """Plans for tobs; its cameras stay fixed across LM iterations, so
+    bundle_adjust_tm builds them once per call."""
+    cam, m = tobs.cam.long(), tobs.mask
+    return SchurPlans(cams=OneHotPlan(cam, n_cams, m, dtype),
+                      pairs=SegmentPlan(cam[:, :, None] * n_cams + cam[:, None, :], n_cams ** 2,
+                                        m[:, :, None] & m[:, None, :]))
+
+
 def tm_normal_and_schur(cams, points, tobs: TrackObservations, K, dist, delta, lam,
-                        reduce_fn=None):
+                        reduce_fn=None, plans: SchurPlans | None = None):
     """One linearization: returns (S_r (V,6,V,6) Schur-reduced camera system,
     rhs (V,6), aux=(V_p^-1 (P,3,3), W (P,S,6,3), g_p (P,3)) for the
-    back-substitution). Peak memory is the (P,S,S,6,6) slot-pair blocks
-    (170 MB at 131,072 tracks, S = 3). With ``reduce_fn`` the camera sums
-    (U, g_c, the Schur terms) are summed over the shards before U is
-    damped, so a sharded system equals the single-process one."""
+    back-substitution). The Schur terms M_s W_t^T are formed in the pair
+    plan's groups (gathered (pairs, 6, 3) factors, 85 MB each at 131,072
+    tracks, S = 3, and their (pairs, 6, 6) products, 170 MB). With
+    ``reduce_fn`` the camera sums (U, g_c, the Schur terms) are summed over
+    the shards before U is damped, so a sharded system equals the
+    single-process one. ``plans`` are built here when None."""
     Vn = cams.shape[0]
+    Sn = tobs.n_slots
+    if plans is None:
+        plans = schur_plans(tobs, Vn, cams.dtype)
     A, B, r = _slot_blocks(cams, points, tobs, K, dist, delta)
-    cam = tobs.cam.long()
     Vp = torch.einsum("psik,psil->pkl", B, B)
     g_p = -torch.einsum("psik,psi->pk", B, r)
     W = torch.einsum("psik,psil->pskl", A, B)                       # (P,S,6,3)
 
-    flat = cam.reshape(-1)
-    z = cams.new_zeros
-    U = z(Vn, 6, 6).index_add_(0, flat, torch.einsum("psik,psil->pskl", A, A).reshape(-1, 6, 6))
+    U = plans.cams.sum(torch.einsum("psik,psil->pskl", A, A).reshape(-1, 6, 6))
     Vinv = damp_points_inv(Vp, lam)
     M = W @ Vinv[:, None]                                           # (P,S,6,3)
-    g_c = z(Vn, 6).index_add_(0, flat, -torch.einsum("psik,psi->psk", A, r).reshape(-1, 6))
-    Mg = z(Vn, 6).index_add_(0, flat, torch.einsum("pskb,pb->psk", M, g_p).reshape(-1, 6))
+    g_c = plans.cams.sum(-torch.einsum("psik,psi->psk", A, r).reshape(-1, 6))
+    Mg = plans.cams.sum(torch.einsum("pskb,pb->psk", M, g_p).reshape(-1, 6))
 
-    pairs = (cam[:, :, None] * Vn + cam[:, None, :]).reshape(-1)    # slot pair -> (cam_s, cam_t)
-    Sc = torch.einsum("psib,ptjb->pstij", M, W).reshape(-1, 6, 6)
-    S_sum = z(Vn * Vn, 6, 6).index_add_(0, pairs, Sc)
+    # slot pair e = (p*S + s)*S + t: M's row e // S, W's row p*S + t; the
+    # padding e = P*S*S lands on the zero row P*S of both
+    e = plans.pairs.tables[0]
+    Mp = with_zero_row(M.reshape(-1, 6, 3))[e // Sn]
+    Wp = with_zero_row(W.reshape(-1, 6, 3))[e // (Sn * Sn) * Sn + e % Sn]
+    Sc = (Mp @ Wp.transpose(-1, -2)).sum(1)                         # M_s W_t^T by group
+    S_sum = plans.pairs.reduce(Sc)
     if reduce_fn is not None:
         U, g_c, Mg, S_sum = reduce_fn(U, g_c, Mg, S_sum)
     S_r = block_diag(damp_cams(U, lam)) - S_sum.reshape(Vn, Vn, 6, 6).permute(0, 2, 1, 3)
@@ -158,9 +189,11 @@ def bundle_adjust_tm(cams, points, tobs: TrackObservations, K, dist,
     lam = torch.tensor(cfg.init_lambda, dtype=cams.dtype, device=cams.device)
     # the current cost rides along: one residual pass per iteration
     cost = tm_cost(cams, points, tobs, K, dist, delta, reduce_fn)
+    plans = schur_plans(tobs, cams.shape[0], cams.dtype)
     costs = []
     for _ in range(cfg.max_iters):
-        S_r, rhs, aux = tm_normal_and_schur(cams, points, tobs, K, dist, delta, lam, reduce_fn)
+        S_r, rhs, aux = tm_normal_and_schur(cams, points, tobs, K, dist, delta, lam, reduce_fn,
+                                            plans)
         dc = tm_solve_cameras(S_r, rhs, n_fixed_cams)
         dp = tm_back_substitute(tobs, aux, dc)
         new_cost = tm_cost(cams + dc, points + dp, tobs, K, dist, delta, reduce_fn)

@@ -96,7 +96,10 @@ def _scale_pass(xy1, xy2, mmask, size1, size2, cfg: GmsConfig, rows2, cols2, rot
     cell2 = _cell_index(xy2, w2, h2, rows2, cols2, off)
     ok = mmask[None] & (cell1 >= 0) & (cell2 >= 0)
     base = torch.arange(n_off, device=dev)[:, None]
-    # one histogram row per offset, with a dump bin for the rejected matches
+    # one histogram row per offset, with a dump bin for the rejected matches.
+    # index_add_ adds with float atomics on the card, but these are counts:
+    # f32 sums of 1.0 are exact below 2**24, in any order (a dense cell has
+    # 168,750 matches), so they repeat bit for bit.
     flat = torch.where(ok, cell1 * c2 + cell2, c1 * c2) + base * (c1 * c2 + 1)
     votes = torch.zeros(n_off * (c1 * c2 + 1), dtype=torch.float32, device=dev)
     votes.index_add_(0, flat.reshape(-1), torch.ones(flat.numel(), device=dev))

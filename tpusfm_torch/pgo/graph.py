@@ -7,11 +7,15 @@ SfM-GMS/SfMUtil.cpp:45):
 * All edges are evaluated as one batch: residual r_e = Log(Z_e^-1 .
   T_i^-1 . T_j) and its (6, 12) Jacobian by forward mode at delta = 0 --
   the se3 ops are written to stay finite there.
-* Dense LM (optimize_pose_graph): H = J^T J scatter-added from the four
-  6x6 endpoint blocks of every edge into a dense (6N, 6N) matrix and one
+* Dense LM (optimize_pose_graph): H = J^T J summed from the four 6x6
+  endpoint blocks of every edge into a dense (6N, 6N) matrix and one
   damped solve per LM step.
 * Matrix-free LM (optimize_pose_graph_cg): H is never formed; a
   block-Jacobi preconditioned CG solves each step from the per-edge blocks.
+* Every sum over edges (H's blocks, g, the block diagonal, H.v) runs in an
+  order fixed by the data: sorted segments over the nodes and over H's
+  block keys (utils/segment.py), planned once per solve, so card runs
+  repeat bit for bit.
 * Both loops run a fixed number of iterations with accept/reject damping on
   the device: nothing waits on the host.
 * ``reduce_fn`` sums the edge sums (H or its blocks, g, H.v, the cost)
@@ -26,6 +30,7 @@ import torch
 
 from tpusfm_torch.pgo import se3
 from tpusfm_torch.utils.jacobian import rowwise_jacobian
+from tpusfm_torch.utils.segment import SegmentPlan, with_zero_row
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,22 +101,33 @@ def _endpoint_blocks(r, Ji, Jj):
             -torch.einsum("eki,ek->ei", Jj, r))
 
 
+def node_plan(ei, ej, n_nodes: int) -> SegmentPlan:
+    """Sums over the edges' endpoints by node: row e < E is edge e's
+    endpoint i, row E + e its endpoint j."""
+    return SegmentPlan(torch.cat([ei, ej]), n_nodes)
+
+
+def block_plan(ei, ej, n_nodes: int) -> SegmentPlan:
+    """Sums of the endpoint blocks (ii, jj, ij, ji: E rows each) into the
+    (N*N, 6, 6) block grid of H."""
+    i, j, N = ei.long(), ej.long(), n_nodes
+    return SegmentPlan(torch.cat([i * N + i, j * N + j, i * N + j, j * N + i]), N * N)
+
+
 def build_normal_system(R, t, ei, ej, Zr, Zt, w, n_nodes: int, cfg: PgoConfig = PgoConfig(),
-                        reduce_fn=None):
+                        reduce_fn=None, plans: tuple[SegmentPlan, SegmentPlan] | None = None):
     """Assemble (H (6N, 6N), g (6N,), cost) for the current linearization.
 
     Every output is a segment sum over edges (over all shards with
-    ``reduce_fn``)."""
+    ``reduce_fn``), in the order of ``plans`` = (node_plan, block_plan),
+    built here when None."""
+    N = n_nodes
+    nodes, blocks = plans or (node_plan(ei, ej, N), block_plan(ei, ej, N))
     r, Ji, Jj = _edge_terms(R, t, ei, ej, Zr, Zt, w, _block_weights(cfg, t), cfg.huber_delta)
     Hii, Hjj, Hij, gi, gj = _endpoint_blocks(r, Ji, Jj)
-    N = n_nodes
-    i, j = ei.long(), ej.long()
-    # the four endpoint blocks of every edge into the (N*N, 6, 6) block grid
-    H = t.new_zeros(N * N, 6, 6).index_add_(
-        0, torch.cat([i * N + i, j * N + j, i * N + j, j * N + i]),
-        torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)]))
+    H = blocks.sum(torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)]))
     H = H.reshape(N, N, 6, 6).permute(0, 2, 1, 3).reshape(6 * N, 6 * N)
-    g = t.new_zeros(N, 6).index_add_(0, torch.cat([i, j]), torch.cat([gi, gj]))
+    g = nodes.sum(torch.cat([gi, gj]))
     out = (H, g.reshape(-1), (r * r).sum())
     return out if reduce_fn is None else reduce_fn(*out)
 
@@ -151,9 +167,10 @@ def optimize_pose_graph(R, t, ei, ej, Zr, Zt, w=None, cfg: PgoConfig = PgoConfig
     # the accepted TRUE Huber cost rides along: accept/reject compares
     # graph_cost against graph_cost, never against the IRLS surrogate
     cost = graph_cost(R, t, ei, ej, Zr, Zt, w, cfg, reduce_fn)
+    plans = node_plan(ei, ej, N), block_plan(ei, ej, N)
     costs = []
     for _ in range(cfg.max_iters):
-        H, g, _ = build_normal_system(R, t, ei, ej, Zr, Zt, w, N, cfg, reduce_fn)
+        H, g, _ = build_normal_system(R, t, ei, ej, Zr, Zt, w, N, cfg, reduce_fn, plans)
         # gauge fix: zero the rows/cols of the frozen nodes, unit diagonal
         Hf = H * free6[:, None] * free6[None, :] + torch.diag(1.0 - free6)
         Hf = Hf + lam * torch.diag(torch.clamp(torch.diagonal(Hf), min=1e-6))
@@ -194,27 +211,29 @@ def lm_cg_core(R, t, ei, ej, Zr, Zt, w, N: int, cfg: PgoConfig, n_fixed: int,
                reduce_fn=None):
     """LM over SE(3) with a MATRIX-FREE block-sparse inner solver.
 
-    The dense path scatter-assembles a (6N)^2 H and runs an O(N^3) solve.
-    Here each LM step builds the per-edge 6x6 endpoint blocks once; the
-    damped gauge-fixed H.v product is two gathers, four block products and
-    one scatter-add per edge, and a block-Jacobi (per-node 6x6)
-    preconditioned CG solves the step. Edges with w = 0 contribute nothing.
-    Under edge sharding ``reduce_fn`` sums over the shards: the block
-    diagonal and gradient once per LM step, the (N, 6) H.v product once per
-    CG iteration and the cost -- O(N) numbers, never quadratic in N.
-    Returns (R, t, costs)."""
+    The dense path assembles a (6N)^2 H and runs an O(N^3) solve. Here
+    each LM step builds the per-edge 6x6 endpoint blocks once and lays
+    them out by node in the node plan's groups: a node's row for edge e is
+    [H_ii | H_ij] (endpoint i) or [H_ij^T | H_jj] (endpoint j), times
+    [v_i; v_j]. The damped gauge-fixed H.v product is then one gather of v
+    and one batched matmul over each group, summed in a fixed order. A
+    block-Jacobi (per-node 6x6) preconditioned CG solves the step. Edges
+    with w = 0 contribute nothing. Under edge sharding ``reduce_fn`` sums
+    over the shards: the block diagonal and gradient once per LM step, the
+    (N, 6) H.v product once per CG iteration and the cost -- O(N) numbers,
+    never quadratic in N. Returns (R, t, costs)."""
     bw = _block_weights(cfg, t)
-    i, j = ei.long(), ej.long()
-    both = torch.cat([i, j])
     free = (torch.arange(N, device=t.device) >= n_fixed).to(t.dtype)[:, None]
     eye6 = torch.eye(6, dtype=t.dtype, device=t.device)
+    nodes = node_plan(ei, ej, N)
+    table = nodes.tables[0]                                          # (groups, L) rows
+    groups, L = table.shape
+    ends = torch.stack([ei, ej], 1).long().repeat(2, 1)              # row -> (i, j)
+    v_rows = with_zero_row(ends)[table].reshape(groups, 2 * L)       # padding reads node 0
 
     def hv(blocks, v):
-        Hii, Hjj, Hij = blocks
-        vi, vj = v[i], v[j]
-        ci = torch.einsum("eab,eb->ea", Hii, vi) + torch.einsum("eab,eb->ea", Hij, vj)
-        cj = torch.einsum("eba,eb->ea", Hij, vi) + torch.einsum("eab,eb->ea", Hjj, vj)
-        out = t.new_zeros(N, 6).index_add_(0, both, torch.cat([ci, cj]))
+        part = (blocks @ v[v_rows].reshape(groups, 12 * L, 1))[..., 0]
+        out = nodes.reduce(part)
         return out if reduce_fn is None else reduce_fn(out)[0]
 
     lam = torch.tensor(cfg.init_lambda, dtype=t.dtype, device=t.device)
@@ -223,15 +242,17 @@ def lm_cg_core(R, t, ei, ej, Zr, Zt, w, N: int, cfg: PgoConfig, n_fixed: int,
     for _ in range(cfg.max_iters):
         r, Ji, Jj = _edge_terms(R, t, ei, ej, Zr, Zt, w, bw, cfg.huber_delta)
         Hii, Hjj, Hij, gi, gj = _endpoint_blocks(r, Ji, Jj)
-        D = t.new_zeros(N, 6, 6).index_add_(0, both, torch.cat([Hii, Hjj]))
-        g = t.new_zeros(N, 6).index_add_(0, both, torch.cat([gi, gj]))
+        D = nodes.sum(torch.cat([Hii, Hjj]))
+        g = nodes.sum(torch.cat([gi, gj]))
         if reduce_fn is not None:
             D, g = reduce_fn(D, g)
         damp = lam * torch.clamp(torch.diagonal(D, dim1=1, dim2=2), min=1e-6)   # (N, 6)
+        rows = torch.cat([torch.cat([Hii, Hij], -1), torch.cat([Hij.transpose(-1, -2), Hjj], -1)])
+        blocks = nodes.gather(rows).permute(0, 2, 1, 3).reshape(groups, 6, 12 * L)
 
         def A(v):
             vf = v * free
-            return (hv((Hii, Hjj, Hij), vf) + damp * vf) * free + v * (1.0 - free)
+            return (hv(blocks, vf) + damp * vf) * free + v * (1.0 - free)
 
         Dd = torch.where(free[:, :, None] > 0, D + torch.diag_embed(damp), eye6)
         Minv = torch.linalg.inv_ex(Dd + 1e-8 * eye6)[0]

@@ -38,6 +38,8 @@ def match_disparity_image(kpts1: Keypoints, kpts2: Keypoints, matches: Matches,
     y = torch.round(p1[:, 1]).long().clamp(0, height - 1)
     n = height * width
     flat = torch.where(matches.mask, y * width + x, n)       # dump bin n for the invalid
+    # the maximum, and the hit flags, do not depend on the order of the
+    # scatter: the card's atomics leave them the same in every run
     disp = torch.zeros(n + 1, dtype=torch.float32, device=d.device).scatter_reduce(
         0, flat, torch.where(matches.mask, d, 0.0), reduce="amax")
     hit = torch.zeros(n + 1, dtype=torch.bool, device=d.device)
