@@ -1,0 +1,5 @@
+"""Two-view pairs completed in the window over the window's time."""
+
+
+def read(window: dict) -> float:
+    return window["items"] / window["seconds"]
