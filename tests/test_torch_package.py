@@ -43,7 +43,7 @@ _MODULES = [
     "tpusfm_torch.stereo.portrait", "tpusfm_torch.calib", "tpusfm_torch.calib.zhang",
     "tpusfm_torch.calib.chessboard", "tpusfm_torch.io.png", "tpusfm_torch.viz",
     "tpusfm_torch.viz.draw", "tpusfm_torch.viz.ply", "tpusfm_torch.utils.timing",
-    "tpusfm_torch.utils.log", "tpusfm_torch.cli", "tpusfm_torch.cli.__main__",
+    "tpusfm_torch.cli", "tpusfm_torch.cli.__main__",
     "tpusfm_torch.dist", "tpusfm_torch.dist.group", "tpusfm_torch.dist.ring_match",
     "tpusfm_torch.dist.sharded_gms", "tpusfm_torch.dist.fused_dense",
     "tpusfm_torch.dist.sharded_ba", "tpusfm_torch.dist.sharded_pgo",

@@ -30,7 +30,7 @@ Package map:
              the device curve, on the card
   utils/     padding helpers, conversion of shared state from numpy,
              row-wise forward-mode Jacobians, checkpoints, trajectory ATE,
-             stage timing and metrics logging
+             spans of the stages on the profiler's clock
 """
 
 __version__ = "0.1.0"

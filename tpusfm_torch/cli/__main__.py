@@ -104,14 +104,13 @@ def cmd_match(args):
     from tpusfm_torch.features.sift import sift_detect_and_compute
     from tpusfm_torch.io.image import resize, rotate
     from tpusfm_torch.sfm.two_view import match_features
-    from tpusfm_torch.utils.timing import Timer, stage_times
+    from tpusfm_torch.utils.timing import recording, window
     from tpusfm_torch.viz import draw_matches
 
     cfg = PipelineConfig(sift=SiftConfig(max_features=args.max_features))
     g1 = _prep_image(args.image1, args.max_size, args.device)
     g2 = _prep_image(args.image2, args.max_size, args.device)
     os.makedirs(args.out, exist_ok=True)
-    timer = Timer()
 
     variants = [("orig", g2)]
     if args.probe:
@@ -119,21 +118,23 @@ def cmd_match(args):
         variants.append(("rescale", resize(g2, 1000, 1000)))
 
     report = {}
-    with timer.stage("detect1"):
+    stages = ["detect1"]        # the report's names of the sift and match spans, in order
+    with recording():
         f1 = sift_detect_and_compute(g1, cfg.sift)
-    for vname, gv in variants:
-        with timer.stage(f"detect2_{vname}"):
+        for vname, gv in variants:
             f2 = sift_detect_and_compute(gv, cfg.sift)
-        h2, w2 = gv.shape
-        for algo in args.algorithms:
-            with timer.stage(f"match_{algo}_{vname}"):
+            stages.append(f"detect2_{vname}")
+            h2, w2 = gv.shape
+            for algo in args.algorithms:
                 m = match_features(f1, f2, algo, (g1.shape[1], g1.shape[0]), (w2, h2), cfg)
-            n = int(m.mask.sum())
-            report[f"{algo}_{vname}_matches"] = n
-            out_png = os.path.join(args.out, f"matches_{algo}_{vname}.png")
-            draw_matches(g1, f1.kpts, gv, f2.kpts, m, out_png)
-            print(f"{algo:6s} {vname:8s}: {n:5d} matches -> {out_png}")
-    report["timings_s"] = {k: round(v, 3) for k, v in stage_times.items()}
+                stages.append(f"match_{algo}_{vname}")
+                n = int(m.mask.sum())
+                report[f"{algo}_{vname}_matches"] = n
+                out_png = os.path.join(args.out, f"matches_{algo}_{vname}.png")
+                draw_matches(g1, f1.kpts, gv, f2.kpts, m, out_png)
+                print(f"{algo:6s} {vname:8s}: {n:5d} matches -> {out_png}")
+    spans = [s for s in window() if s.name in ("sift", "two_view.match")]
+    report["timings_s"] = {k: round(s.duration_ns / 1e9, 3) for k, s in zip(stages, spans)}
     with open(os.path.join(args.out, "match_report.json"), "w") as f:
         json.dump(report, f, indent=2)
 

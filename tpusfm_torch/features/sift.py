@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from tpusfm_torch.config import SiftConfig
 from tpusfm_torch.features import scalespace as ss
 from tpusfm_torch.types import Features, Keypoints
+from tpusfm_torch.utils.timing import span
 
 _BORDER = 5
 _TWO_PI = 2 * math.pi
@@ -517,37 +518,43 @@ def sift_detect_and_compute(img, cfg: SiftConfig = SiftConfig()) -> Features:
     a leading B axis); runs on the image tensor's device. Equivalent of
     SIFTDetectAndCompute (SfM-GMS/FeatureMatchUtil.cpp:9-12)."""
     single = img.dim() == 2
-    x = img.float()
-    if single:
-        x = x[None]
-    base_scale = 0.5 if cfg.upsample else 1.0
-    h0, w0 = x.shape[-2:]
-    h = h0 * 2 if cfg.upsample else h0
-    w = w0 * 2 if cfg.upsample else w0
-    n_oct = ss.num_octaves(h, w, cfg.max_octaves)
-    n_oct = min(n_oct, 1 + max(0, int(math.log2(min(h, w) / (4 * _BORDER)))))
+    with span("sift", 1 if single else img.shape[0]):
+        x = img.float()
+        if single:
+            x = x[None]
+        base_scale = 0.5 if cfg.upsample else 1.0
+        h0, w0 = x.shape[-2:]
+        h = h0 * 2 if cfg.upsample else h0
+        w = w0 * 2 if cfg.upsample else w0
+        n_oct = ss.num_octaves(h, w, cfg.max_octaves)
+        n_oct = min(n_oct, 1 + max(0, int(math.log2(min(h, w) / (4 * _BORDER)))))
 
-    base = _prepare_base(x, cfg)
-    outs = []
-    ho, wo = h, w
-    for o in range(n_oct):
-        if min(ho, wo) < 4 * _BORDER:
-            break
-        # candidate budget shrinks with octave area (clamped to the octave's
-        # candidate count so top-k stays well-formed)
-        k_oct = min(max(32, cfg.max_features >> o), cfg.n_octave_layers * ho * wo)
-        gauss, dog = ss.build_octave(base, cfg.sigma, cfg.n_octave_layers)
-        # level n_layers is at blur 2*sigma: decimated, the next base
-        base = ss.downsample2(gauss[:, cfg.n_octave_layers])
-        sel = _select_octave(dog, k_oct, cfg)
-        del dog
-        outs.append(_describe_octave(gauss, *sel, base_scale * (2.0 ** o), cfg))
-        del gauss
-        ho, wo = -(-ho // 2), -(-wo // 2)
+        with span("sift.pyramid"):
+            base = _prepare_base(x, cfg)
+        outs = []
+        ho, wo = h, w
+        for o in range(n_oct):
+            if min(ho, wo) < 4 * _BORDER:
+                break
+            # candidate budget shrinks with octave area (clamped to the octave's
+            # candidate count so top-k stays well-formed)
+            k_oct = min(max(32, cfg.max_features >> o), cfg.n_octave_layers * ho * wo)
+            with span("sift.pyramid"):
+                gauss, dog = ss.build_octave(base, cfg.sigma, cfg.n_octave_layers)
+                # level n_layers is at blur 2*sigma: decimated, the next base
+                base = ss.downsample2(gauss[:, cfg.n_octave_layers])
+            with span("sift.detect"):
+                sel = _select_octave(dog, k_oct, cfg)
+            del dog
+            with span("sift.describe"):
+                outs.append(_describe_octave(gauss, *sel, base_scale * (2.0 ** o), cfg))
+            del gauss
+            ho, wo = -(-ho // 2), -(-wo // 2)
 
-    feats = _merge_octaves(outs, cfg.max_features)
-    if single:
-        return Features(kpts=Keypoints(*(v[0] for v in (
-            feats.kpts.xy, feats.kpts.scale, feats.kpts.angle, feats.kpts.response,
-            feats.kpts.mask))), desc=feats.desc[0])
-    return feats
+        with span("sift.describe"):
+            feats = _merge_octaves(outs, cfg.max_features)
+        if single:
+            return Features(kpts=Keypoints(*(v[0] for v in (
+                feats.kpts.xy, feats.kpts.scale, feats.kpts.angle, feats.kpts.response,
+                feats.kpts.mask))), desc=feats.desc[0])
+        return feats

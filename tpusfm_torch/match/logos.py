@@ -20,6 +20,7 @@ import torch
 from tpusfm_torch.config import LogosConfig
 from tpusfm_torch.match.kmeans import assign_words, kmeans
 from tpusfm_torch.types import Keypoints, Matches
+from tpusfm_torch.utils.timing import span
 
 _BIG = 1e30
 _COL_BLOCK = 512
@@ -130,8 +131,10 @@ def logos_match(feat1, feat2, cfg: LogosConfig = LogosConfig(), centers=None) ->
     clusters desc1 only, FeatureMatchUtil.cpp:101-102), word assignment for
     both images, then geometric verification. ``centers`` (num_words, D)
     optionally injects the vocabulary in place of k-means."""
-    if centers is None:
-        centers, _ = kmeans(feat1.desc, feat1.kpts.mask, cfg.num_words, cfg.kmeans_iters)
-    words1 = torch.where(feat1.kpts.mask, assign_words(feat1.desc, centers), -1)
-    words2 = torch.where(feat2.kpts.mask, assign_words(feat2.desc, centers), -2)
-    return logos_verify(feat1.kpts, feat2.kpts, words1, words2, cfg)
+    with span("logos.vocabulary"):
+        if centers is None:
+            centers, _ = kmeans(feat1.desc, feat1.kpts.mask, cfg.num_words, cfg.kmeans_iters)
+        words1 = torch.where(feat1.kpts.mask, assign_words(feat1.desc, centers), -1)
+        words2 = torch.where(feat2.kpts.mask, assign_words(feat2.desc, centers), -2)
+    with span("logos.verify"):
+        return logos_verify(feat1.kpts, feat2.kpts, words1, words2, cfg)

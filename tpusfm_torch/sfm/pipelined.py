@@ -18,17 +18,13 @@ from tpusfm_torch.config import PipelineConfig
 from tpusfm_torch.dist.group import Group
 from tpusfm_torch.dist.pipeline import pipeline_map
 from tpusfm_torch.features.sift import sift_detect_and_compute
-from tpusfm_torch.match.bf import bf_match
-from tpusfm_torch.sfm.two_view import TwoViewResult, _geometry_chain
+from tpusfm_torch.sfm.two_view import (TwoViewResult, _geometry_chain, match_features,
+                                       two_view_sfm)
 from tpusfm_torch.types import CameraIntrinsics
 
 
 def _sift(img, cfg: PipelineConfig):
     return sift_detect_and_compute(img, cfg.sift)
-
-
-def _match(f1, f2, cfg: PipelineConfig):
-    return bf_match(f1.desc, f2.desc, f1.kpts.mask, f2.kpts.mask, cfg.match)
 
 
 def two_view_stages(intr: CameraIntrinsics, cfg: PipelineConfig, n_stages: int = 2) -> list:
@@ -38,8 +34,7 @@ def two_view_stages(intr: CameraIntrinsics, cfg: PipelineConfig, n_stages: int =
             return _sift(pair[0], cfg), _sift(pair[1], cfg)
 
         def geometry(feats):
-            f1, f2 = feats
-            return _geometry_chain(_match(f1, f2, cfg), f1, f2, intr, cfg)
+            return two_view_sfm(*feats, intr, "bf", cfg=cfg)
 
         return [detect, geometry]
 
@@ -53,7 +48,7 @@ def two_view_stages(intr: CameraIntrinsics, cfg: PipelineConfig, n_stages: int =
 
         def match(feats):
             f1, f2 = feats
-            return _match(f1, f2, cfg), f1, f2
+            return match_features(f1, f2, "bf", cfg=cfg), f1, f2
 
         def geometry(x):
             m, f1, f2 = x

@@ -22,6 +22,7 @@ from tpusfm_torch.match.gms import gms_filter
 from tpusfm_torch.match.logos import logos_match
 from tpusfm_torch.types import Features, Keypoints, Matches
 from tpusfm_torch.utils.pad import pad_axis, round_up
+from tpusfm_torch.utils.timing import span
 
 DENSE_CHUNK = 262144
 
@@ -164,43 +165,47 @@ def run_disparity_benchmark(left, right, gt, alg: str, density: str, disp_ratio:
     dense GMS the fused ring + vote pass, and sparse GMS the match-sharded
     filter, every rank on the full images. Returns dict(rms, count,
     n_matches, disp, valid)."""
-    h, w = left.shape
-    size = (w, h)
-    if density == "dense" and alg == "orb":
-        f1, f2 = dense_orb_features(left), dense_orb_features(right)
-        metric = "hamming"
-    elif density == "dense":
-        f1, f2 = dense_features(left), dense_features(right)
-        metric = "l2"
-    elif alg == "orb":
-        f1, f2 = orb_detect_and_compute(left, cfg.orb), orb_detect_and_compute(right, cfg.orb)
-        metric = "hamming"
-    else:
-        f1, f2 = sift_detect_and_compute(left, cfg.sift), sift_detect_and_compute(right, cfg.sift)
-        metric = "l2"
+    with span("disparity", 1):
+        h, w = left.shape
+        size = (w, h)
+        with span("disparity.describe"):
+            if density == "dense" and alg == "orb":
+                f1, f2 = dense_orb_features(left), dense_orb_features(right)
+                metric = "hamming"
+            elif density == "dense":
+                f1, f2 = dense_features(left), dense_features(right)
+                metric = "l2"
+            elif alg == "orb":
+                f1 = orb_detect_and_compute(left, cfg.orb)
+                f2 = orb_detect_and_compute(right, cfg.orb)
+                metric = "hamming"
+            else:
+                f1 = sift_detect_and_compute(left, cfg.sift)
+                f2 = sift_detect_and_compute(right, cfg.sift)
+                metric = "l2"
 
-    mcfg = dataclasses.replace(cfg.match, cross_check=False)
-    sharded = group is not None and group.size > 1
-    if sharded and density == "dense" and alg == "gms":
-        return _cell(f1, f2, _ring_gms_match(f1, f2, size, group, metric, cfg), gt, disp_ratio)
-    if sharded and density == "dense":
-        raw = _ring_raw_match(f1, f2, group, metric, mcfg)
-    elif density == "dense":
-        raw = dense_raw_match(f1, f2, metric, mcfg)
-    else:
-        raw = bf_match(f1.desc, f2.desc, f1.kpts.mask, f2.kpts.mask, mcfg,
-                       metric=metric, prune=False, capacity=f1.capacity)
-    if alg == "gms" and sharded:
-        from tpusfm_torch.dist.sharded_gms import sharded_gms_filter
+        mcfg = dataclasses.replace(cfg.match, cross_check=False)
+        sharded = group is not None and group.size > 1
+        if sharded and density == "dense" and alg == "gms":
+            return _cell(f1, f2, _ring_gms_match(f1, f2, size, group, metric, cfg), gt, disp_ratio)
+        if sharded and density == "dense":
+            raw = _ring_raw_match(f1, f2, group, metric, mcfg)
+        elif density == "dense":
+            raw = dense_raw_match(f1, f2, metric, mcfg)
+        else:
+            raw = bf_match(f1.desc, f2.desc, f1.kpts.mask, f2.kpts.mask, mcfg,
+                           metric=metric, prune=False, capacity=f1.capacity)
+        if alg == "gms" and sharded:
+            from tpusfm_torch.dist.sharded_gms import sharded_gms_filter
 
-        matches = sharded_gms_filter(f1.kpts, f2.kpts, raw, size, size, group, cfg.gms)
-    elif alg == "gms":
-        matches = gms_filter(f1.kpts, f2.kpts, raw, size, size, cfg.gms)
-    elif alg == "logos" and density == "sparse":
-        matches = logos_match(f1, f2, cfg.logos, centers=logos_centers)
-    else:
-        matches = raw
-    return _cell(f1, f2, matches, gt, disp_ratio)
+            matches = sharded_gms_filter(f1.kpts, f2.kpts, raw, size, size, group, cfg.gms)
+        elif alg == "gms":
+            matches = gms_filter(f1.kpts, f2.kpts, raw, size, size, cfg.gms)
+        elif alg == "logos" and density == "sparse":
+            matches = logos_match(f1, f2, cfg.logos, centers=logos_centers)
+        else:
+            matches = raw
+        return _cell(f1, f2, matches, gt, disp_ratio)
 
 
 def _cell(f1: Features, f2: Features, matches: Matches, gt, disp_ratio: float) -> dict:
