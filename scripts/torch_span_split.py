@@ -41,7 +41,7 @@ from benchmark import drivers, harness  # noqa: E402
 from benchmark.drivers.base import Spans  # noqa: E402
 from tpusfm_torch.utils.timing import recording, span, window  # noqa: E402
 
-LAUNCH = ("cudaLaunchKernel", "cuLaunchKernel")
+LAUNCH = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")
 
 
 def sync(driver):

@@ -3,7 +3,7 @@ of SIFT and two-view SfM on the profiler's clock, nested under their roots;
 nothing recorded, and no clock read, with recording off; one window per
 profiler session; the CLI's match report built from the recorder. On the
 card (marked ``cuda``): an sfm.bf-shaped step's spans add no device event
-and hold its kernel launches.
+and hold its kernel and graph launches.
 
 This file imports no jax, so its card test runs where jax is absent:
     python -m pytest -q --noconftest -m cuda tests/test_torch_trace.py
@@ -140,7 +140,8 @@ def test_the_match_report_keeps_its_timings_from_the_recorder(tmp_path, monkeypa
 @pytest.mark.cuda
 def test_cuda_spans_add_no_device_event_and_hold_the_launches():
     """An sfm.bf-shaped step (SIFT at 10k features on two 2016x1512 pairs,
-    then two_view_batch), profiled with CUDA activity, inputs made first."""
+    then two_view_batch), profiled with CUDA activity, inputs made first;
+    its third run, so SIFT replays its graphs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the NN kernel has no CPU mode)")
     from tpusfm_torch.bench.scenes import render_full_pair
@@ -160,6 +161,7 @@ def test_cuda_spans_add_no_device_event_and_hold_the_launches():
                               intr, cfg)
 
     step()                                      # the NN kernel's build, cuDNN's choices
+    step()                                      # SIFT's graphs captured
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -168,16 +170,18 @@ def test_cuda_spans_add_no_device_event_and_hold_the_launches():
     spans = window()
     events = prof.profiler.kineto_results.events()
     names = {s.name for s in spans}
-    assert names == LEAVES["bf"] | {"sift", "two_view"}
+    assert names == LEAVES["bf"] | {"sift", "two_view", "sift.replay"}
     assert not [e.name() for e in events if e.is_user_annotation() or e.name() in names]
     assert any(e.device_type() == torch.autograd.DeviceType.CUDA for e in events)
 
-    launches = [e.start_ns() for e in events if e.name().startswith("cudaLaunchKernel")]
+    launches = [e.start_ns() for e in events
+                if e.name().startswith(("cudaLaunchKernel", "cudaGraphLaunch"))]
     roots = [s for s in spans if s.parent is None]
     leaves = [s for s in spans if not any(t.parent == s.id for t in spans)]
 
     def inside(t, group):
         return any(s.start_ns <= t <= s.end_ns for s in group)
     assert len(launches) > 1000
+    assert sum(e.name().startswith("cudaGraphLaunch") for e in events) >= 20
     assert all(inside(t, roots) for t in launches)
     assert sum(inside(t, leaves) for t in launches) >= 0.95 * len(launches)

@@ -1,0 +1,141 @@
+"""Replay of a fixed-shape call from CUDA graphs captured stage by stage.
+
+A function whose every size follows from its inputs' shapes and its
+configuration, and that never reads the device on the host, launches the
+same kernels on the same buffers' worth of data at every call. Launched
+one op at a time from Python, such a call can cost the host more than
+the device's work. ``StagedGraphs`` runs it eagerly the first time a key
+is seen, captures it the second time, one CUDA graph per stage, and from
+then on replays the graphs: a few graph launches in place of thousands
+of kernel launches. One-off shapes never pay for a capture.
+
+The function is written once, against ``run(name, fn, *args)``, which
+calls ``fn(*args)`` inside the span ``name``: eagerly, or captured into a
+graph and replayed at once. All of a key's graphs share one memory pool
+and are captured in order, so each stage reads the outputs of the stages
+before it where they lie, and replaying the graphs in that order runs
+the eager call's kernels on the same data. A replayed call copies its
+input into the captured input buffer, replays each graph inside the span
+that names its stage, all inside the span ``<name>.replay``, and returns
+a clone of the outputs: the next replay overwrites the captured ones.
+
+Graphs are made only for CUDA inputs. At most ``max_keys`` keys are held;
+the least recently used is dropped with its memory pool.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from collections import OrderedDict
+
+import torch
+
+from tpusfm_torch.utils.timing import span
+
+
+def _eager(name: str, fn, *args):
+    with span(name):
+        return fn(*args)
+
+
+def _clone(v):
+    """A copy of the tensors of ``v`` (a tensor, or a dataclass, tuple or
+    list of them), in the same structure."""
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if dataclasses.is_dataclass(v):
+        return dataclasses.replace(v, **{f.name: _clone(getattr(v, f.name))
+                                         for f in dataclasses.fields(v)})
+    return type(v)(_clone(u) for u in v)
+
+
+def _math_modes() -> tuple:
+    """The settings that choose kernels, which a graph keeps as captured."""
+    return (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
+
+
+def _put(cache: OrderedDict, key, value, size: int):
+    cache[key] = value
+    while len(cache) > size:
+        cache.popitem(last=False)
+
+
+class _Captured:
+    """One key's graphs, captured from ``body(x, run)``, and their static
+    input and outputs. The capture replays each graph as soon as it is
+    made, so ``out`` holds this call's outputs when it returns."""
+
+    def __init__(self, x, body):
+        self.inp = x.clone()
+        self.stages = []
+        pool = torch.cuda.graph_pool_handle()
+        caller = torch.cuda.current_stream(x.device)
+        side = torch.cuda.Stream(x.device)        # the legacy stream cannot be captured
+        side.wait_stream(caller)
+
+        def run(name, fn, *args):
+            with span(name):
+                g = torch.cuda.CUDAGraph()
+                g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    out = fn(*args)
+                finally:
+                    g.capture_end()
+                g.replay()
+            self.stages.append((name, g))
+            return out
+
+        with torch.cuda.stream(side):
+            self.out = body(self.inp, run)
+        caller.wait_stream(side)
+
+    def replay(self, x):
+        """The outputs for ``x``: its copy in, each stage's graph in its
+        span, a clone out."""
+        last = len(self.stages) - 1
+        for i, (name, g) in enumerate(self.stages):
+            with span(name):
+                if i == 0:
+                    self.inp.copy_(x)
+                g.replay()
+                if i == last:
+                    return _clone(self.out)
+
+
+class StagedGraphs:
+    """The graphs of one staged function, by key, least recently used
+    first; ``name`` names the span of a replayed call."""
+
+    def __init__(self, name: str, max_keys: int = 4):
+        self.name = name
+        self.max_keys = max_keys
+        self._seen = OrderedDict()        # keys met once, not captured
+        self._held = OrderedDict()        # key -> _Captured
+        self._lock = threading.Lock()
+
+    def __call__(self, key, x, items: int, body):
+        """``body(x, run)`` for the key ``key``, which must fix every shape
+        the body makes: eagerly, by a capture, or by a replay. ``items``
+        counts the inputs (the replay span's items)."""
+        if x.device.type != "cuda" or self.max_keys <= 0:
+            return body(x, _eager)
+        key = (key, _math_modes())
+        with self._lock:
+            held = self._held.get(key)
+            if held is not None:
+                self._held.move_to_end(key)
+                with span(f"{self.name}.replay", items):
+                    return held.replay(x)
+            if key in self._seen:
+                del self._seen[key]
+                held = _Captured(x, body)
+                self.hold(key, held)
+                return _clone(held.out)
+            _put(self._seen, key, None, 16 * self.max_keys)
+        return body(x, _eager)
+
+    def hold(self, key, captured):
+        """Keep ``captured`` under ``key``, dropping the least recently
+        used key past ``max_keys``."""
+        _put(self._held, key, captured, self.max_keys)

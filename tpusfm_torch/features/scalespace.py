@@ -33,6 +33,23 @@ def _pad_axis(x4, r: int, rows: bool, mode: str):
     return F.pad(x4, (0, 0, r, r) if rows else (r, r, 0, 0), mode=_PAD_MODES[mode])
 
 
+_CONSTS: dict = {}
+
+
+def device_const(values, device, dtype=None):
+    """``values`` (a host array of constants: taps, offsets, weights) as a
+    tensor on ``device``, made once and cached by its bytes, dtype and
+    device. A fresh ``torch.as_tensor`` at each use would copy it from
+    pageable host memory, a copy that blocks the host until the device
+    has caught up and that no CUDA graph capture can hold."""
+    a = np.ascontiguousarray(values)
+    key = (a.dtype.str, a.shape, a.tobytes(), dtype, torch.device(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(a, dtype=dtype, device=device)
+    return t
+
+
 def conv1d(x, taps, axis: int, mode: str = "edge"):
     """1-D correlation of (..., H, W) along ``axis`` (-2 or -1) with odd-length
     ``taps``: edge-replicate ("edge"), zero ("constant") or mirror without
@@ -41,7 +58,7 @@ def conv1d(x, taps, axis: int, mode: str = "edge"):
     r = (len(taps) - 1) // 2
     h, w = x.shape[-2:]
     rows = axis % x.dim() == x.dim() - 2
-    k = torch.as_tensor(taps, dtype=x.dtype, device=x.device)
+    k = device_const(taps, x.device, x.dtype)
     weight = k.view(1, 1, -1, 1) if rows else k.view(1, 1, 1, -1)
     x4 = _pad_axis(x.reshape(-1, 1, h, w), r, rows, mode)
     return F.conv2d(x4, weight).reshape(x.shape)
