@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpusfm_torch.utils.consts import device_const
+
 
 def gaussian_kernel1d(sigma: float) -> np.ndarray:
     """Odd-length normalized Gaussian taps, radius ~4 sigma (static)."""
@@ -31,23 +33,6 @@ _PAD_MODES = {"edge": "replicate", "constant": "constant", "reflect": "reflect"}
 def _pad_axis(x4, r: int, rows: bool, mode: str):
     """Pad (N, 1, H, W) by r on both sides of H (rows) or W."""
     return F.pad(x4, (0, 0, r, r) if rows else (r, r, 0, 0), mode=_PAD_MODES[mode])
-
-
-_CONSTS: dict = {}
-
-
-def device_const(values, device, dtype=None):
-    """``values`` (a host array of constants: taps, offsets, weights) as a
-    tensor on ``device``, made once and cached by its bytes, dtype and
-    device. A fresh ``torch.as_tensor`` at each use would copy it from
-    pageable host memory, a copy that blocks the host until the device
-    has caught up and that no CUDA graph capture can hold."""
-    a = np.ascontiguousarray(values)
-    key = (a.dtype.str, a.shape, a.tobytes(), dtype, torch.device(device))
-    t = _CONSTS.get(key)
-    if t is None:
-        t = _CONSTS[key] = torch.tensor(a, dtype=dtype, device=device)
-    return t
 
 
 def conv1d(x, taps, axis: int, mode: str = "edge"):

@@ -33,6 +33,7 @@ from tpusfm_torch.config import SiftConfig
 from tpusfm_torch.features import scalespace as ss
 from tpusfm_torch.features.replay import StagedGraphs
 from tpusfm_torch.types import Features, Keypoints
+from tpusfm_torch.utils.consts import device_const
 from tpusfm_torch.utils.timing import span
 
 _BORDER = 5
@@ -64,7 +65,7 @@ _CUBE_OFFS = np.array(
 def _gather_cubes(dog, l, y, x):
     """3x3x3 cubes at (B, K) indices -> (B, K, 3, 3, 3), index clamped."""
     B, L, h, w = dog.shape
-    offs = ss.device_const(_CUBE_OFFS, dog.device)
+    offs = device_const(_CUBE_OFFS, dog.device)
     flat = ((l[..., None] + offs[:, 0]) * h + (y[..., None] + offs[:, 1])) * w + (
         x[..., None] + offs[:, 2])
     flat = flat.clamp(0, L * h * w - 1).reshape(B, -1)
@@ -203,7 +204,7 @@ _ORI_W = np.exp(-(_ORI_TAPS[:, 0] ** 2 + _ORI_TAPS[:, 1] ** 2) / 2.0).astype(np.
 
 def _ori_offsets(x, y, sigma):
     """Orientation sample coords: (B, K) -> (sx, sy) each (B, K, 9)."""
-    taps = ss.device_const(_ORI_TAPS, x.device)
+    taps = device_const(_ORI_TAPS, x.device)
     r = (1.5 * sigma)[..., None]
     return x[..., None] + taps[:, 0] * r, y[..., None] + taps[:, 1] * r
 
@@ -242,7 +243,7 @@ def _peak_angles(hist, cfg: SiftConfig):
 
 def _orientations_from_samples(S, cfg: SiftConfig):
     """Angles from gathered orientation samples S (B, K, 9, 8)."""
-    hist = (S * ss.device_const(_ORI_W, S.device)[:, None]).sum(-2)   # (B, K, 8)
+    hist = (S * device_const(_ORI_W, S.device)[:, None]).sum(-2)   # (B, K, 8)
     return _peak_angles(_smooth_circular(hist), cfg)
 
 
@@ -254,7 +255,7 @@ _CELL_W = np.exp(-(_CELLS[:, 0] ** 2 + _CELLS[:, 1] ** 2) / 8.0).astype(np.float
 
 def _desc_offsets(x, y, sigma, angle, cfg: SiftConfig):
     """Rotated 4x4 cell-center sample coords: (B, K) -> (sx, sy) each (B, K, 16)."""
-    cells = ss.device_const(_CELLS, x.device)
+    cells = device_const(_CELLS, x.device)
     cell = (cfg.descriptor_scale_factor * sigma)[..., None]
     ca = torch.cos(angle)[..., None]
     sa = torch.sin(angle)[..., None]
@@ -277,7 +278,7 @@ def _descriptors_from_samples(S, angle, cfg: SiftConfig):
     i0 = torch.remainder(k + s0[..., None], n)[..., None, :].expand(S.shape)
     i1 = torch.remainder(k + s0[..., None] + 1, n)[..., None, :].expand(S.shape)
     D = torch.gather(S, -1, i0) * (1.0 - f) + torch.gather(S, -1, i1) * f
-    D = D * ss.device_const(_CELL_W, S.device)[:, None]
+    D = D * device_const(_CELL_W, S.device)[:, None]
     return _normalize_clip(D.reshape(*D.shape[:-2], -1), cfg)
 
 

@@ -17,10 +17,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from tpusfm_torch.config import GmsConfig
 from tpusfm_torch.types import Keypoints, Matches
+from tpusfm_torch.utils.consts import device_const
 
 # 8 rotation patterns: circular shifts of the 8 ring neighbours (centre
 # fixed). Ring order (clockwise) as indices into the row-major 3x3
@@ -42,13 +44,13 @@ def _rotation_perms(device) -> torch.Tensor:
         for pos, slot in enumerate(_RING):
             p[slot] = _RING[(pos + r) % 8]
         perms.append(p)
-    return torch.tensor(perms, dtype=torch.long, device=device)
+    return device_const(np.array(perms, np.int64), device)
 
 
 def _f32_reciprocal(v, device) -> torch.Tensor:
     """1 / v rounded to f32, v first rounded to f32: the factor that XLA's
     algebraic simplifier puts in place of a division by the constant v."""
-    return 1.0 / torch.tensor(v, dtype=torch.float32, device=device)
+    return 1.0 / device_const(np.float32(v), device)
 
 
 def _cell_index(xy, w, h, rows, cols, off):
@@ -89,7 +91,7 @@ def _scale_pass(xy1, xy2, mmask, size1, size2, cfg: GmsConfig, rows2, cols2, rot
     dev = xy1.device
     nb1 = _neighbors(rows1, cols1, dev)                      # (c1, 9)
     nb2 = _neighbors(rows2, cols2, dev)                      # (c2, 9)
-    off = torch.tensor(_OFFSETS, dtype=torch.float32, device=dev)
+    off = device_const(np.array(_OFFSETS, np.float32), dev)
     n_off = off.shape[0]
 
     cell1 = _cell_index(xy1, w1, h1, rows1, cols1, off)      # (O, N)
@@ -150,7 +152,9 @@ def gms_inliers(xy1, xy2, mmask, size1, size2, cfg: GmsConfig = GmsConfig(), red
     counts = inls.to(torch.int32).sum(1)
     if reduce_fn is not None:
         counts, = reduce_fn(counts)
-    return inls[torch.argmax(counts)]
+    # selected on the device: indexing by a 0-d tensor would read it on the
+    # host and so wait here for all the work queued before GMS
+    return inls.index_select(0, torch.argmax(counts).view(1))[0]
 
 
 def gms_filter(kpts1: Keypoints, kpts2: Keypoints, matches: Matches,

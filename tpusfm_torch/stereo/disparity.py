@@ -43,8 +43,9 @@ def match_disparity_image(kpts1: Keypoints, kpts2: Keypoints, matches: Matches,
     # scatter: the card's atomics leave them the same in every run
     disp = torch.zeros(n + 1, dtype=torch.float32, device=d.device).scatter_reduce(
         0, flat, torch.where(matches.mask, d, 0.0), reduce="amax")
-    hit = torch.zeros(n + 1, dtype=torch.bool, device=d.device)
-    hit[flat] = True
+    # index_fill_ passes True as a kernel argument; ``hit[flat] = True``
+    # would copy it to the card first, a copy that waits for queued work
+    hit = torch.zeros(n + 1, dtype=torch.bool, device=d.device).index_fill_(0, flat, True)
     return disp[:-1].reshape(height, width), hit[:-1].reshape(height, width)
 
 
