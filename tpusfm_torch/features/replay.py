@@ -15,9 +15,17 @@ graph and replayed at once. All of a key's graphs share one memory pool
 and are captured in order, so each stage reads the outputs of the stages
 before it where they lie, and replaying the graphs in that order runs
 the eager call's kernels on the same data. A replayed call copies its
-input into the captured input buffer, replays each graph inside the span
-that names its stage, all inside the span ``<name>.replay``, and returns
-a clone of the outputs: the next replay overwrites the captured ones.
+input (a tensor, or a tuple of them) into the captured input buffers,
+replays each graph inside the span that names its stage, all inside the
+span ``<name>.replay``, and returns a clone of the outputs: the next
+replay overwrites the captured ones.
+
+``run(name, fn, *args, eager=True)`` is a stage that no graph can hold,
+such as a solver that reads its status on the host. It runs ``fn`` as it
+comes, at the capture and at every replay, and copies each replay's
+outputs into those of the capture, where the graphs after it read them.
+Called inside a captured stage, it ends that stage's graph, and the rest
+of the stage is captured into a new graph under the same name.
 
 Graphs are made only for CUDA inputs. At most ``max_keys`` keys are held;
 the least recently used is dropped with its memory pool.
@@ -26,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import warnings
 from collections import OrderedDict
 
 import torch
@@ -33,7 +42,7 @@ import torch
 from tpusfm_torch.utils.timing import span
 
 
-def _eager(name: str, fn, *args):
+def _eager(name: str, fn, *args, eager: bool = False):
     with span(name):
         return fn(*args)
 
@@ -49,6 +58,23 @@ def _clone(v):
     return type(v)(_clone(u) for u in v)
 
 
+def _copy(dst, src):
+    """Copy the tensors of ``src`` into those of ``dst``, of one structure."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif dataclasses.is_dataclass(dst):
+        for f in dataclasses.fields(dst):
+            _copy(getattr(dst, f.name), getattr(src, f.name))
+    else:
+        for d, s in zip(dst, src, strict=True):
+            _copy(d, s)
+
+
+def _device(x) -> torch.device:
+    """The device of ``x``, a tensor or a tuple of them."""
+    return (x[0] if isinstance(x, tuple) else x).device
+
+
 def _math_modes() -> tuple:
     """The settings that choose kernels, which a graph keeps as captured."""
     return (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
@@ -61,29 +87,67 @@ def _put(cache: OrderedDict, key, value, size: int):
         cache.popitem(last=False)
 
 
+class _Again:
+    """An eager stage of a captured call: ``fn`` on the captured buffers
+    ``args``, its outputs ``out`` kept for the graphs after it."""
+
+    def __init__(self, fn, args, out):
+        self.fn, self.args, self.out = fn, args, out
+
+    def replay(self):
+        _copy(self.out, self.fn(*self.args))
+
+
 class _Captured:
     """One key's graphs, captured from ``body(x, run)``, and their static
     input and outputs. The capture replays each graph as soon as it is
     made, so ``out`` holds this call's outputs when it returns."""
 
     def __init__(self, x, body):
-        self.inp = x.clone()
-        self.stages = []
+        self.inp = _clone(x)
+        self.stages = []                          # (name, graph or _Again), in order
         pool = torch.cuda.graph_pool_handle()
-        caller = torch.cuda.current_stream(x.device)
-        side = torch.cuda.Stream(x.device)        # the legacy stream cannot be captured
+        dev = _device(x)
+        caller = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)             # the legacy stream cannot be captured
         side.wait_stream(caller)
+        capturing = None                          # the open graph's stage name
 
-        def run(name, fn, *args):
+        def begin(name):
+            nonlocal capturing
+            g = torch.cuda.CUDAGraph()
+            g.capture_begin(pool=pool, capture_error_mode="thread_local")
+            self.stages.append((name, g))
+            capturing = name
+
+        def end():
+            nonlocal capturing
+            capturing = None
+            g = self.stages[-1][1]
+            with warnings.catch_warnings():
+                # two eager stages in a row leave the graph between them empty
+                warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+                g.capture_end()
+            return g
+
+        def run(name, fn, *args, eager=False):
+            if eager:
+                within = capturing
+                if within is not None:
+                    end().replay()
+                with span(name):
+                    out = fn(*args)
+                self.stages.append((name, _Again(fn, args, out)))
+                if within is not None:
+                    begin(within)
+                return out
             with span(name):
-                g = torch.cuda.CUDAGraph()
-                g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                begin(name)
                 try:
                     out = fn(*args)
                 finally:
-                    g.capture_end()
+                    g = end() if capturing is not None else None
                 g.replay()
-            self.stages.append((name, g))
             return out
 
         with torch.cuda.stream(side):
@@ -91,14 +155,14 @@ class _Captured:
         caller.wait_stream(side)
 
     def replay(self, x):
-        """The outputs for ``x``: its copy in, each stage's graph in its
-        span, a clone out."""
+        """The outputs for ``x``: its copy in, each stage's graph or eager
+        call in its span, a clone out."""
         last = len(self.stages) - 1
-        for i, (name, g) in enumerate(self.stages):
+        for i, (name, stage) in enumerate(self.stages):
             with span(name):
                 if i == 0:
-                    self.inp.copy_(x)
-                g.replay()
+                    _copy(self.inp, x)
+                stage.replay()
                 if i == last:
                     return _clone(self.out)
 
@@ -116,9 +180,10 @@ class StagedGraphs:
 
     def __call__(self, key, x, items: int, body):
         """``body(x, run)`` for the key ``key``, which must fix every shape
-        the body makes: eagerly, by a capture, or by a replay. ``items``
-        counts the inputs (the replay span's items)."""
-        if x.device.type != "cuda" or self.max_keys <= 0:
+        the body makes: eagerly, by a capture, or by a replay. ``x`` is a
+        tensor or a tuple of them; ``items`` counts the inputs (the replay
+        span's items)."""
+        if _device(x).type != "cuda" or self.max_keys <= 0:
             return body(x, _eager)
         key = (key, _math_modes())
         with self._lock:

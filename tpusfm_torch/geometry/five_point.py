@@ -18,6 +18,8 @@ import math
 import numpy as np
 import torch
 
+from tpusfm_torch.utils.consts import device_const
+
 _DEG1 = [(1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 0, 0)]
 _DEG2 = [
     (2, 0, 0), (1, 1, 0), (1, 0, 1), (0, 2, 0), (0, 1, 1),
@@ -53,7 +55,7 @@ _DCOEF3 = _EXP3.T.copy()                                  # (3,20)
 
 
 def _const(a, like):
-    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+    return device_const(a, like.device, like.dtype)
 
 
 def _mono20(v):
@@ -183,9 +185,9 @@ def _real_roots_deg10(coeffs):
     return z, valid
 
 
-def _project_essential(E):
+def _project_essential(E, svd=torch.linalg.svd):
     """Nearest essential matrix (equal singular values, rank 2), batched."""
-    u, svals, vt = torch.linalg.svd(E)
+    u, svals, vt = svd(E)
     sm = 0.5 * (svals[..., 0] + svals[..., 1])
     d = torch.stack([sm, sm, torch.zeros_like(sm)], -1)
     return (u * d[..., None, :]) @ vt
@@ -233,27 +235,28 @@ def _solve3_sym(G, b):
     ], -1) / det[..., None]
 
 
-def five_point_essential(x1, x2):
+def five_point_essential(x1, x2, svd=torch.linalg.svd):
     """Essential-matrix candidates from 5 normalized correspondences.
 
     x1, x2: (H, 5, 2) or (5, 2) normalized camera coordinates; the
     constraint is h2^T E h1 = 0. Returns (E (H, 10, 3, 3), valid (H, 10))
-    -- up to 10 real solutions per sample, padded (no H axis for 2-D input)."""
+    -- up to 10 real solutions per sample, padded (no H axis for 2-D input).
+    ``svd`` stands in for torch.linalg.svd (see find_essential_ransac)."""
     if x1.dim() == 2:
-        E, ok = five_point_essential(x1[None], x2[None])
+        E, ok = five_point_essential(x1[None], x2[None], svd)
         return E[0], ok[0]
     H = x1.shape[0]
     ones = torch.ones_like(x1[..., :1])
     h1 = torch.cat([x1, ones], -1)
     h2 = torch.cat([x2, ones], -1)
     A = (h2[..., :, None] * h1[..., None, :]).reshape(H, 5, 9)
-    _, _, vt = torch.linalg.svd(A, full_matrices=True)
+    _, _, vt = svd(A, True)
     basis = vt[:, 5:9]                                   # (H, 4, 9) nullspace
     # E(x,y,z) = x*B0 + y*B1 + z*B2 + B3 ; linear-form tensor (H, 3, 3, 4)
-    return _solve_basis(basis.reshape(H, 4, 3, 3).permute(0, 2, 3, 1))
+    return _solve_basis(basis.reshape(H, 4, 3, 3).permute(0, 2, 3, 1), svd)
 
 
-def _solve_basis(L):
+def _solve_basis(L, svd=torch.linalg.svd):
     """Essential candidates (H, 10, 3, 3) and validity (H, 10) from the
     nullspace basis as linear forms L (H, 3, 3, 4).
 
@@ -326,6 +329,6 @@ def _solve_basis(L):
     # torch's SVD raises on non-finite input where XLA's returns NaN; those
     # candidates end up zero either way.
     E = torch.where(torch.isfinite(E).all(-1).all(-1)[..., None, None], E, 0.0)
-    Es = _project_essential(E)
+    Es = _project_essential(E, svd)
     Es = torch.where(torch.isfinite(Es).all(-1).all(-1)[..., None, None], Es, 0.0)
     return Es, valid & finite

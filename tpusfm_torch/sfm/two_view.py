@@ -12,15 +12,16 @@ import dataclasses
 
 import torch
 
-from tpusfm_torch.config import PipelineConfig
-from tpusfm_torch.geometry.epipolar import find_essential_ransac
+from tpusfm_torch.config import PipelineConfig, RansacConfig
+from tpusfm_torch.features.replay import StagedGraphs
+from tpusfm_torch.geometry.epipolar import find_essential_ransac, sample_noise, sample_table
 from tpusfm_torch.geometry.pose import recover_pose
 from tpusfm_torch.geometry.triangulate import triangulate_pair
 from tpusfm_torch.geometry.undistort import undistort_points
 from tpusfm_torch.match.bf import bf_match
 from tpusfm_torch.match.gms import gms_filter
 from tpusfm_torch.match.logos import logos_match
-from tpusfm_torch.types import CameraIntrinsics, Features, Matches
+from tpusfm_torch.types import CameraIntrinsics, Features, Matches, matched_xy
 from tpusfm_torch.utils.timing import span
 
 
@@ -62,24 +63,52 @@ def match_features(feat1: Features, feat2: Features, algo: str,
     raise ValueError(f"unknown algo {algo!r}")
 
 
+def _geometry(idx1, idx2, mask, xy1, xy2, K, dist, table, cfg: RansacConfig,
+              sampled: bool, svd):
+    """A pair's geometry from the tensors it reads: undistortion, RANSAC
+    with its two refits, recoverPose and triangulation. ``table`` is the
+    RANSAC sample table if ``sampled``, else the noise it is drawn from.
+    Returns R, t, E, the points, their mask and the three counts."""
+    p1, p2 = matched_xy(idx1, idx2, mask, xy1, xy2)
+    x1n = undistort_points(p1, K, dist)
+    x2n = undistort_points(p2, K, dist)
+    focal = (K[0, 0] + K[1, 1]) * 0.5
+    sample_idx = table if sampled else sample_table(mask, cfg, table)
+    E, inl, n_inl = find_essential_ransac(x1n, x2n, mask, focal, cfg, sample_idx, svd)
+    R, t, cheir = recover_pose(E, x1n, x2n, inl, svd)
+    X = torch.where(cheir[:, None], triangulate_pair(R, t, x1n, x2n), 0.0)
+    return R, t, E, X, cheir, mask.to(torch.int32).sum(-1), n_inl, cheir.to(torch.int32).sum()
+
+
+# The geometry chain captured as CUDA graphs, by its shapes and RANSAC configuration
+_GRAPHS = StagedGraphs("two_view.geometry", max_keys=4)
+
+
 def _geometry_chain(matches: Matches, feat1: Features, feat2: Features,
                     intr: CameraIntrinsics, cfg: PipelineConfig,
                     sample_idx=None) -> TwoViewResult:
+    """The geometry of one pair. On the card, from the second call with the
+    same shapes and RANSAC configuration on, it replays CUDA graphs
+    (``features/replay.py``) of the stages between its seven SVDs, which
+    run eagerly (cuSOLVER reads its status on the host); the outputs are
+    the eager call's, bit for bit, and never alias the graphs' memory."""
     with span("two_view.geometry"):
-        p1, p2 = matches.gather_xy(feat1.kpts, feat2.kpts)
-        x1n = undistort_points(p1, intr.K, intr.dist)
-        x2n = undistort_points(p2, intr.K, intr.dist)
-        focal = (intr.K[0, 0] + intr.K[1, 1]) * 0.5
+        sampled = sample_idx is not None
+        rc = cfg.ransac
+        table = sample_idx if sampled else sample_noise(
+            rc.n_hypotheses, matches.mask.shape[-1], rc.seed, matches.mask.device)
+        x = (matches.idx1, matches.idx2, matches.mask, feat1.kpts.xy, feat2.kpts.xy,
+             intr.K, intr.dist, table)
 
-        E, inl, n_inl = find_essential_ransac(x1n, x2n, matches.mask, focal, cfg.ransac,
-                                              sample_idx=sample_idx)
-        R, t, cheir = recover_pose(E, x1n, x2n, inl)
-        X = torch.where(cheir[:, None], triangulate_pair(R, t, x1n, x2n), 0.0)
-        return TwoViewResult(
-            R=R, t=t, E=E, points3d=X, point_mask=cheir, matches=matches,
-            n_matches=matches.count, n_inliers=n_inl,
-            n_points=cheir.to(torch.int32).sum(),
-        )
+        def body(x, run):
+            def svd(A, full_matrices=True):
+                return run("two_view.geometry.svd", torch.linalg.svd, A, full_matrices, eager=True)
+            return run("two_view.geometry.stage", _geometry, *x, rc, sampled, svd)
+
+        key = (tuple((t.shape, t.dtype) for t in x), matches.mask.device, rc, sampled)
+        R, t, E, X, cheir, n_matches, n_inl, n_points = _GRAPHS(key, x, 1, body)
+        return TwoViewResult(R=R, t=t, E=E, points3d=X, point_mask=cheir, matches=matches,
+                             n_matches=n_matches, n_inliers=n_inl, n_points=n_points)
 
 
 def two_view_sfm(feat1: Features, feat2: Features, intr: CameraIntrinsics,

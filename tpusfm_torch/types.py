@@ -90,10 +90,15 @@ class Matches:
 
     def gather_xy(self, kpts1: Keypoints, kpts2: Keypoints):
         """Matched pixel coordinates ((M,2), (M,2)), zeroed where invalid."""
-        p1 = _clamped_take(kpts1.xy, self.idx1)
-        p2 = _clamped_take(kpts2.xy, self.idx2)
-        m = self.mask.unsqueeze(-1)
-        return torch.where(m, p1, 0.0), torch.where(m, p2, 0.0)
+        return matched_xy(self.idx1, self.idx2, self.mask, kpts1.xy, kpts2.xy)
+
+
+def matched_xy(idx1, idx2, mask, xy1, xy2):
+    """Matches.gather_xy on the tensors it reads: the rows of ``xy1`` at
+    ``idx1`` and of ``xy2`` at ``idx2``, zeroed where ``mask`` is false."""
+    m = mask.unsqueeze(-1)
+    return (torch.where(m, _clamped_take(xy1, idx1), 0.0),
+            torch.where(m, _clamped_take(xy2, idx2), 0.0))
 
 
 @dataclasses.dataclass(frozen=True)
