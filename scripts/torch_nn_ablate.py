@@ -9,7 +9,7 @@ read, or ptxas drops the products as dead), without its int8 products, and
 without either (the db still streams through the ring, stages are still
 waited for and released). Times each at the dense ORB shape (1 x 168750 x
 168750 x 8) on two inputs, random words with 10% of the db masked and the
-dense ORB descriptors of chip_smoke.py's 450x375 stereo pair, with CUDA
+dense ORB descriptors of tests/torch_scenes.py's 450x375 stereo pair, with CUDA
 events, in turns (full, cut-downs, cut-downs reversed, full), and samples
 the SM clock and the power draw with nvidia-smi while each runs. The
 cut-down kernels give wrong answers and serve only this timing. Needs one
@@ -26,6 +26,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tests"))
 from tpusfm_torch.kernels import distance  # noqa: E402
 
 SHAPE = (1, 168750, 168750, 8)
@@ -95,7 +96,7 @@ def main():
         raise SystemExit("needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    from chip_smoke import render_stereo_pair
+    from torch_scenes import render_stereo_pair
     from tpusfm_torch.stereo.disparity import dense_orb_features
 
     B, nq, ndb, words = SHAPE

@@ -2,7 +2,7 @@
 (tpusfm_torch.io.png) and its drawing (tpusfm_torch.viz), against tpusfm's.
 
 The CLI runs under TPUSFM_PLATFORM=cpu on rendered scenes written as PNGs
-(chip_smoke.write_cli_inputs at 160x120 and 96x128), in process through
+(torch_scenes.write_cli_inputs at 160x120 and 96x128), in process through
 ``main(argv)``; tpusfm's CLI runs on the same files.
 """
 import contextlib
@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_scenes
 from tpusfm_torch.cli import __main__ as cli
 from tpusfm_torch.io import png
 
@@ -32,9 +32,10 @@ SPARSE_CELLS = ["sift", "orb", "gms"]
 @pytest.fixture(scope="module")
 def scenes(tmp_path_factory):
     root = tmp_path_factory.mktemp("cli_in")
-    (p1, p2), f, _ = chip_smoke.render_sequence(2, 120, 160, step=0.5)
-    return chip_smoke.write_cli_inputs(str(root), (p1, p2, f), chip_smoke.render_sequence(4, 120, 160),
-                                       (96, 128), (378, 504), 4)
+    (p1, p2), f, _ = torch_scenes.render_sequence(2, 120, 160, step=0.5)
+    return torch_scenes.write_cli_inputs(str(root), (p1, p2, f),
+                                         torch_scenes.render_sequence(4, 120, 160),
+                                         (96, 128), (378, 504), 4)
 
 
 @pytest.fixture(autouse=True)
@@ -148,7 +149,7 @@ def test_calibrate_matches_tpusfm(scenes, tmp_path):
     np.testing.assert_allclose(got["dist"], want["dist"], rtol=1e-3, atol=1e-3)
     np.testing.assert_allclose(got["rms"], want["rms"], rtol=1e-3)
     np.testing.assert_array_equal(got["image_size"], [504, 378])
-    assert np.abs(got["K"] - chip_smoke.BOARD_K).max() < 5.0
+    assert np.abs(got["K"] - torch_scenes.BOARD_K).max() < 5.0
 
 
 def test_stereo_matches_tpusfm(scenes, tmp_path):

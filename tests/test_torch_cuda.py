@@ -13,7 +13,12 @@ for bit equal; the ring NN search
 over two ranks sharing the card (gloo) against one nn_search call, the
 pipelined two-view path over two ranks sharing the card against the serial
 stage chain on the card, the CLI's sfm on the card, and the two-view bench
-on the card against the CPU.
+on the card against the CPU. Then paths reached by nothing else on the
+card: the library's Hamming key layout, the dense disparity cells in one
+launch each, StereoBM at the robot pair's size, the speckle filter and the
+host CCL on a card result, per-sample SIFT against the CPU, the CLI's
+other subcommands, `--devices 2` through torch.distributed.run on the one
+card, a world-size-1 NCCL group, and the BA bench and device curve.
 
 This file imports no jax, so it runs where jax is absent:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -21,7 +26,9 @@ This file imports no jax, so it runs where jax is absent:
 import pytest
 import torch
 
-from chip_smoke import HAMMING_KINDS, HAMMING_SHAPES, HAMMING_WIDE
+from torch_scenes import (BOARD_K, HAMMING_KINDS, HAMMING_SHAPES, HAMMING_WIDE, check_pose,
+                          render_sequence, render_small_pair, render_stereo_pair,
+                          write_cli_inputs)
 from tpusfm_torch.kernels import distance as td
 
 torch.set_num_threads(2)
@@ -90,7 +97,7 @@ def test_cuda_l2_kernel_at_its_edges(cuda_device, dtype, B, nq, ndb, d):
     """The wgmma kernel == nn_search_torch on unit rows with a random mask
     (best/second within rtol 1e-5, atol 1e-4; idx equal where the gap is
     clear; never a masked row), one launch per call."""
-    from chip_smoke import compare, edge_case
+    from torch_scenes import compare, edge_case
 
     compare(td, f"{dtype} {(B, nq, ndb, d)}", edge_case("random", B, nq, ndb, d, dtype)[:3])
 
@@ -103,7 +110,7 @@ def test_cuda_l2_kernel_ties_and_masks(cuda_device, dtype, kind, shape):
     """Exact ties either side of db tile and slice boundaries go to the lowest
     valid index; an all-masked db gives -1 and 1e30; masked rows of the
     ragged last tile never win."""
-    from chip_smoke import compare, edge_case
+    from torch_scenes import compare, edge_case
 
     if shape[0] == 3:   # one query tile a pair: every db tile is its own slice
         assert td.db_splits(*shape, dtype) == 24
@@ -121,7 +128,7 @@ def test_cuda_hamming_kernel_at_its_edges(cuda_device, shape, kind):
     duplicates across tile and slice boundaries (the lowest valid index),
     all-masked, masked rows in the ragged last tile, one valid row (second
     1e30); one launch per call."""
-    from chip_smoke import compare, edge_case
+    from torch_scenes import compare, edge_case
 
     q, db, mask, expect = edge_case(kind, *shape, torch.uint32)
     compare(td, f"hamming {shape} {kind}", (q, db, mask), "hamming", expect)
@@ -133,7 +140,7 @@ def test_cuda_hamming_kernel_at_its_edges(cuda_device, shape, kind):
 def test_cuda_hamming_kernel_with_64_bit_keys(cuda_device, shape, kind):
     """Past the 32-bit key's reach (distance field and db index need more
     than 32 bits) the kernel ranks 64-bit keys, still bit for bit."""
-    from chip_smoke import compare, edge_case
+    from torch_scenes import compare, edge_case
 
     assert td.key_shift(*shape) == 32 == td.hamming_key_shift(shape[3], shape[2])
     q, db, mask, expect = edge_case(kind, *shape, torch.uint32)
@@ -142,7 +149,7 @@ def test_cuda_hamming_kernel_with_64_bit_keys(cuda_device, shape, kind):
 
 @pytest.mark.cuda
 def test_two_view_on_cuda_matches_cpu(cuda_device):
-    from chip_smoke import render_small_pair
+    from torch_scenes import render_small_pair
     from tpusfm_torch.config import MatchConfig, PipelineConfig, RansacConfig, SiftConfig
     from tpusfm_torch.features.sift import sift_detect_and_compute
     from tpusfm_torch.sfm import two_view_sfm
@@ -170,7 +177,7 @@ def test_cuda_dense_modes_match_plain_version_on_real_descriptors(cuda_device, f
     descriptors (one query per pixel): Hamming on dense ORB words exactly
     equal, border rows masked; f32 L2 on dense SIFT within rtol 1e-5,
     atol 1e-4."""
-    from chip_smoke import compare, render_stereo_pair
+    from torch_scenes import compare, render_stereo_pair
     from tpusfm_torch.stereo.disparity import dense_features, dense_orb_features
 
     left, right, _ = (torch.from_numpy(a).to(cuda_device) for a in render_stereo_pair(150, 200))
@@ -188,7 +195,7 @@ def test_cuda_sparse_disparity_cells_match_cpu(cuda_device, alg):
     """A sparse cell of run_disparity_benchmark on the card against the port
     on the CPU (rms within 1e-3 relative, count and n_matches within 1%),
     one NN-search launch; LOGOS with the CPU's vocabulary on both sides."""
-    from chip_smoke import render_stereo_pair
+    from torch_scenes import render_stereo_pair
     from tpusfm_torch.config import PipelineConfig
     from tpusfm_torch.features.sift import sift_detect_and_compute
     from tpusfm_torch.match.kmeans import kmeans
@@ -216,7 +223,7 @@ def test_cuda_sparse_disparity_cells_match_cpu(cuda_device, alg):
 def test_cuda_two_view_gms_logos_match_cpu(cuda_device, algo):
     """two_view_sfm with GMS (one launch) or LOGOS (none) on the card against
     the CPU on the same features, RANSAC samples and vocabulary."""
-    from chip_smoke import render_small_pair, to_device
+    from torch_scenes import render_small_pair, to_device
     from tpusfm_torch.config import MatchConfig, PipelineConfig, RansacConfig, SiftConfig
     from tpusfm_torch.features.sift import sift_detect_and_compute
     from tpusfm_torch.geometry.epipolar import sample_table
@@ -286,7 +293,7 @@ def test_cuda_pose_graph_matches_cpu(cuda_device, solver):
     optimum; the card's reductions add in another order than the CPU's,
     which changes the iterates' last bits); the closure halves the drift on
     both."""
-    from chip_smoke import noisy_loop_problem
+    from torch_scenes import noisy_loop_problem
     from tpusfm_torch.pgo import PgoConfig, optimize_pose_graph, optimize_pose_graph_cg
 
     res = {}
@@ -316,7 +323,7 @@ def test_cuda_solvers_repeat_in_default_mode(cuda_device, solver):
     (tpusfm_torch/utils/segment.py), not by the card's scheduling."""
     import numpy as np
 
-    from chip_smoke import noisy_loop_problem, synthetic_sequence_features
+    from torch_scenes import noisy_loop_problem, synthetic_sequence_features
     from tpusfm_torch.ba.multiview import incremental_sfm
     from tpusfm_torch.ba.solver import bundle_adjust
     from tpusfm_torch.ba.synthetic import synth_ba_problem
@@ -381,7 +388,7 @@ def test_cuda_incremental_sfm_matches_cpu(cuda_device):
     free gauge), 10 NN-search launches (5 pairs, both directions)."""
     import numpy as np
 
-    from chip_smoke import synthetic_sequence_features
+    from torch_scenes import synthetic_sequence_features
     from tpusfm_torch.ba.multiview import incremental_sfm
 
     rc = incremental_sfm(*synthetic_sequence_features(device="cpu"), algo="bf")
@@ -403,7 +410,7 @@ def test_cuda_stereo_bm_matches_cpu(cuda_device):
     """StereoBMConfig() on a 200x150 render: integer disparities and valid
     masks equal to the CPU's on >= 99.9% of the pixels (the SAD costs are
     f32 cumsums, which add in another order on the card)."""
-    from chip_smoke import render_stereo_pair
+    from torch_scenes import render_stereo_pair
     from tpusfm_torch.stereo import stereo_bm
 
     left, right, _ = (torch.from_numpy(a) for a in render_stereo_pair(150, 200))
@@ -416,7 +423,7 @@ def test_cuda_stereo_bm_matches_cpu(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("channels", [1, 3])
 def test_cuda_median_blur_is_bit_equal_to_cpu(cuda_device, channels):
-    from chip_smoke import render_stereo_rgb
+    from torch_scenes import render_stereo_rgb
     from tpusfm_torch.stereo import median_blur
 
     img = torch.from_numpy(render_stereo_rgb(150, 200)[0])
@@ -430,7 +437,7 @@ def test_cuda_portrait_matches_cpu(cuda_device, dtype):
     """create_portrait_mode at 160x120, threshold 25, f32 and the bf16
     opt-in: one NN-search launch, foreground masks equal to the CPU's on
     >= 99.5% of the pixels, the portrait within 1e-6 where they agree."""
-    from chip_smoke import render_stereo_rgb
+    from torch_scenes import render_stereo_rgb
     from tpusfm_torch.stereo import create_portrait_mode
 
     left, right, _, _ = (torch.from_numpy(a) for a in render_stereo_rgb(120, 160))
@@ -451,7 +458,7 @@ def test_cuda_calibrate_camera_matches_cpu(cuda_device):
     within rtol 1e-3 of the CPU's."""
     import numpy as np
 
-    from chip_smoke import render_board_views
+    from torch_scenes import render_board_views
     from tpusfm_torch.calib import board_object_points, calibrate_camera, find_chessboard_corners
 
     views, _, _ = render_board_views(n_views=4, tilt=0.5)
@@ -553,7 +560,7 @@ def test_cuda_cli_sfm(cuda_device, tmp_path, monkeypatch):
 
     import numpy as np
 
-    from chip_smoke import check_pose, render_sequence
+    from torch_scenes import check_pose, render_sequence
     from tpusfm_torch.cli.__main__ import main
     from tpusfm_torch.io import imwrite
 
@@ -671,3 +678,374 @@ def test_cuda_two_view_bench_matches_cpu(cuda_device, monkeypatch):
     assert td.launches - before == 2 * 3
     assert fps > 0 and abs(g_inl - c_inl) <= 2 and abs(g_pts - c_pts) <= 2, (g_inl, c_inl,
                                                                            g_pts, c_pts)
+
+
+# ----------------------------------------------------------------------
+# Card paths that no test above and no benchmark cell reaches, each at the
+# smallest size that still shows it.
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _gauge_free(cams):
+    """BA cameras (V, 6) [rvec, tvec] with camera 0 held: the rotations, and
+    the camera centres relative to camera 0's in units of camera 1's
+    distance from it (holding camera 0 leaves the scale free)."""
+    from tpusfm_torch.geometry.projection import rodrigues
+
+    c = -(rodrigues(cams[:, :3]).transpose(-1, -2) @ cams[:, 3:, None])[..., 0]
+    c = c - c[0]
+    return torch.cat([cams[:, :3], c / c[1].norm()], 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HAMMING_SHAPES)
+def test_cuda_hamming_key_layout_matches_plain_version(cuda_device, shape):
+    """Inside the 32-bit key's reach the library ranks 32-bit keys with the
+    index bits distance.hamming_key_shift gives."""
+    assert td.key_shift(*shape) == td.hamming_key_shift(shape[3], shape[2]) < 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["sift", "orb", "gms"])
+def test_cuda_dense_disparity_cells_run_in_one_launch(cuda_device, alg):
+    """A dense cell of run_disparity_benchmark on the card: one NN-search
+    launch (every query in one chunk), a finite RMS over valid pixels."""
+    import numpy as np
+
+    from tpusfm_torch.config import PipelineConfig
+    from tpusfm_torch.stereo import run_disparity_benchmark
+
+    pair = [torch.from_numpy(a).to(cuda_device) for a in render_stereo_pair(150, 200)]
+    before = td.launches
+    r = run_disparity_benchmark(*pair, alg, "dense", 4.0, PipelineConfig())
+    torch.cuda.synchronize()
+    assert td.launches == before + 1
+    assert np.isfinite(r["rms"]) and r["count"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_stereo_bm_at_the_robot_size_keeps_to_the_truth(cuda_device):
+    """StereoBMConfig() at the robot pair's 2594x1131, where the SAD sums
+    pass 2^24: >= 99% of the valid pixels within 1 px of the known
+    disparity, every disparity finite."""
+    from tpusfm_torch.stereo import stereo_bm
+
+    left, right, gt = (torch.from_numpy(a).to(cuda_device) for a in render_stereo_pair(1131, 2594))
+    disp, valid = stereo_bm(left, right)
+    within = ((disp - gt * 255.0 / 4.0).abs() <= 1.0)[valid].float().mean()
+    assert float(within) >= 0.99 and bool(torch.isfinite(disp).all())
+
+
+@pytest.mark.cuda
+def test_cuda_speckle_filter_and_components_on_a_card_result(cuda_device):
+    """stereo_bm_filtered on card tensors (speckles 100 px / 2): the card's
+    disparity unchanged, only valid pixels dropped; the host CCL labels
+    every pixel left valid."""
+    import numpy as np
+
+    from tpusfm_torch import native
+    from tpusfm_torch.config import StereoBMConfig
+    from tpusfm_torch.stereo import stereo_bm, stereo_bm_filtered
+
+    left, right, _ = (torch.from_numpy(a).to(cuda_device) for a in render_stereo_pair(150, 200))
+    disp, valid = (t.cpu().numpy() for t in stereo_bm(left, right))
+    fdisp, fvalid = stereo_bm_filtered(left, right, StereoBMConfig(speckle_window_size=100,
+                                                                   speckle_range=2))
+    _, n, areas = native.connected_components(fvalid, 8)
+    assert np.array_equal(fdisp, disp) and not (fvalid & ~valid).any()
+    assert n >= 1 and int(areas.sum()) == int(fvalid.sum())
+
+
+@pytest.mark.cuda
+def test_cuda_per_sample_sift_matches_cpu(cuda_device):
+    """SIFT's per-sample descriptor path (fast_descriptor=False) on the small
+    pair, card against CPU: keypoint masks equal, angles within 1e-4 rad and
+    descriptors within 1e-4 on all but 1% of the rows (last-bit atan2, exp,
+    cos and sin differences flip near-tied bins), two_view_sfm's pose
+    within 1e-3."""
+    import math
+
+    from tpusfm_torch.config import MatchConfig, PipelineConfig, RansacConfig, SiftConfig
+    from tpusfm_torch.features.sift import sift_detect_and_compute
+    from tpusfm_torch.sfm import two_view_sfm
+    from tpusfm_torch.types import CameraIntrinsics
+
+    cfg = PipelineConfig(sift=SiftConfig(max_features=256, upsample=False, fast_descriptor=False),
+                         match=MatchConfig(max_matches=256),
+                         ransac=RansacConfig(n_hypotheses=128, threshold_px=2.0))
+    runs = []
+    for dev in ("cpu", cuda_device):
+        feats = [sift_detect_and_compute(torch.from_numpy(g).to(dev), cfg.sift)
+                 for g in render_small_pair()]
+        intr = CameraIntrinsics.ideal(160.0, 160.0, 80.0, 80.0, dev)
+        runs.append((feats, two_view_sfm(*feats, intr, "bf", cfg=cfg)))
+    (fcs, rc), (fgs, rg) = runs
+    for fc, fg in zip(fcs, fgs):
+        m = fc.kpts.mask
+        assert torch.equal(fg.kpts.mask.cpu(), m)
+        ang = fg.kpts.angle.cpu()[m].double() - fc.kpts.angle[m].double()
+        ang = torch.remainder(ang + math.pi, 2 * math.pi) - math.pi
+        off = (ang.abs() > 1e-4) | ((fg.desc.cpu()[m] - fc.desc[m]).abs().amax(-1) > 1e-4)
+        assert int(off.sum()) <= int(0.01 * off.numel()), int(off.sum())
+    assert (rg.R.cpu() - rc.R).abs().max() < 1e-3
+    assert float(rg.t.cpu() @ rc.t) > 0.999
+    check_pose(rg.R, rg.t, rg.n_inliers, "small pair, per-sample SIFT on the card")
+
+
+def _cli_inputs(root):
+    """tests/test_torch_cli.py's scenes as the CLI's files: a 160x120 pair,
+    a 4-view rail, a 128x96 stereo pair and its colour version, four board
+    photos at 504x378 and calib.npz."""
+    (p1, p2), f, _ = render_sequence(2, 120, 160, step=0.5)
+    return write_cli_inputs(str(root), (p1, p2, f), render_sequence(4, 120, 160), (96, 128),
+                            (378, 504), 4)
+
+
+def _run_cli(argv) -> str:
+    """tpusfm_torch.cli.main(argv) in this process, its stdout captured."""
+    import contextlib
+    import io
+
+    from tpusfm_torch.cli.__main__ import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
+def _printed_cells(text) -> dict:
+    cells = {}
+    for line in text.splitlines():
+        if "RMS=" in line:
+            alg, density = line.replace(":", " ").split()[:2]
+            cells[(alg, density)] = (float(line.split("RMS=")[1].split()[0]),
+                                     int(line.split("count=")[1].split()[0]))
+    return cells
+
+
+@pytest.mark.cuda
+def test_cuda_cli_subcommands_run_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """The CLI's other working subcommands on the card (TPUSFM_PLATFORM
+    unset), at tests/test_torch_cli.py's sizes: sfm-seq registers the 4
+    views under 1 px, pose-graph writes its npz with a finite ATE against
+    it, calibrate finds the 4 boards and K within 5 px of the camera's,
+    stereo, portrait, disparity (7 cells, each with a finite RMS) and match
+    write their files."""
+    import json
+    import os
+
+    import numpy as np
+
+    from tpusfm_torch.io import png
+
+    monkeypatch.delenv("TPUSFM_PLATFORM", raising=False)
+    inp, out = _cli_inputs(tmp_path / "in"), tmp_path / "out"
+    seq = ["--images", *inp["seq"], "--calib", inp["calib"]]
+    text = _run_cli(["sfm-seq", *seq, "--out", str(out / "seq")])
+    assert "n_registered: 4" in text
+    assert float(text.split("reproj_error_px: ")[1].split()[0]) < 1.0
+    assert (out / "seq" / "reconstruction.ply").exists()
+    _run_cli(["pose-graph", *seq, "--ref-traj", str(out / "seq" / "reconstruction.npz"),
+              "--out", str(out / "pg")])
+    z = np.load(out / "pg" / "pose_graph.npz")
+    assert {"ate_before", "ate_after", "centers_pgo", "R_pgo"} <= set(z.files)
+    assert np.isfinite(z["ate_after"]) and z["centers_pgo"].shape == (4, 3)
+
+    text = _run_cli(["calibrate", "--images", *inp["boards"], "--out", str(out / "calib.npz")])
+    assert text.count(": found") == 4
+    assert np.abs(np.load(out / "calib.npz")["K"] - BOARD_K).max() < 5.0
+
+    left, right, gt = inp["stereo"]
+    assert _run_cli(["stereo", "--left", left, "--right", right,
+                     "--out", str(out / "stereo")]).startswith("valid=")
+    assert png.read_rgb(str(out / "stereo" / "stereo_bm.png")).shape == (96, 128, 3)
+    assert _run_cli(["portrait", "--left", inp["rgb"][0], "--right", inp["rgb"][1],
+                     "--out", str(out / "portrait")]).startswith("fg=")
+    for name in ("portrait.png", "portrait_fg.png"):
+        assert png.read_rgb(str(out / "portrait" / name)).shape == (96, 128, 3)
+    cells = _printed_cells(_run_cli(["disparity", "--left", left, "--right", right, "--gt", gt,
+                                     "--density", "both", "--out", str(out / "disparity")]))
+    assert set(cells) == ({(a, "sparse") for a in ("sift", "orb", "gms", "logos")}
+                          | {(a, "dense") for a in ("sift", "orb", "gms")})
+    assert all(count > 0 and np.isfinite(rms) for rms, count in cells.values())
+
+    _run_cli(["match", "--image1", inp["pair"][0], "--image2", inp["pair"][1],
+              "--out", str(out / "match")])
+    report = json.loads((out / "match" / "match_report.json").read_text())
+    assert report["bf_orig_matches"] > 50
+    for algo in ("bf", "gms", "logos"):
+        assert os.path.exists(out / "match" / f"matches_{algo}_orig.png")
+
+
+@pytest.mark.cuda
+def test_cuda_cli_devices_2_shares_the_card_over_gloo(cuda_device, tmp_path, monkeypatch):
+    """`--devices 2` through torch.distributed.run on the one card: the two
+    ranks share it over gloo (operands staged through the host), and
+    sfm-seq, pose-graph and the dense disparity cells, run together,
+    agree with one device: the same registrations, reprojection within
+    rtol 1e-3 and cameras within 1e-4 free of the scale gauge; pose-graph
+    centres within 1e-4 of their extent and its ATE within rtol 1e-3;
+    every cell's count equal and RMS within rtol 1e-4."""
+    import os
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    monkeypatch.delenv("TPUSFM_PLATFORM", raising=False)
+    inp, one, two = _cli_inputs(tmp_path / "in"), tmp_path / "one", tmp_path / "two"
+    seq = ["--images", *inp["seq"], "--calib", inp["calib"]]
+    left, right, gt = inp["stereo"]
+    dense = ["disparity", "--left", left, "--right", right, "--gt", gt, "--density", "dense",
+             "--algorithms", "sift", "gms", "orb"]
+    seq_text = _run_cli(["sfm-seq", *seq, "--out", str(one / "seq")])
+    ref_traj = str(one / "seq" / "reconstruction.npz")
+    _run_cli(["pose-graph", *seq, "--ref-traj", ref_traj, "--out", str(one / "pg")])
+    cells = _printed_cells(_run_cli([*dense, "--out", str(one / "disparity")]))
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    argvs = [["sfm-seq", *seq, "--devices", "2", "--out", str(two / "seq")],
+             ["pose-graph", *seq, "--ref-traj", ref_traj, "--devices", "2",
+              "--out", str(two / "pg")],
+             [*dense, "--devices", "2", "--out", str(two / "disparity")]]
+    procs = [subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc-per-node", "2", "-m", "tpusfm_torch.cli", *argv],
+                              cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for argv in argvs]
+    outs = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=600)
+            assert p.returncode == 0, stderr[-4000:]
+            outs.append(stdout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+    assert "over gloo" in outs[0]
+    for key in ("n_registered: ", "reproj_error_px: "):
+        got, want = (float(t.split(key)[1].split()[0]) for t in (outs[0], seq_text))
+        assert abs(got - want) <= 1e-3 * want, (key, got, want)
+    a, b = (np.load(d / "seq" / "reconstruction.npz")["cams"] for d in (two, one))
+    diff = (_gauge_free(torch.from_numpy(a).double()) - _gauge_free(torch.from_numpy(b).double()))
+    assert float(diff.abs().max()) < 1e-4
+    a, b = (np.load(d / "pg" / "pose_graph.npz") for d in (two, one))
+    extent = np.abs(b["centers_pgo"]).max()
+    assert np.abs(a["centers_pgo"] - b["centers_pgo"]).max() <= 1e-4 * extent
+    assert abs(float(a["ate_after"]) - float(b["ate_after"])) <= 1e-3 * float(b["ate_after"])
+    got = _printed_cells(outs[2])
+    assert set(got) == set(cells) == {(a, "dense") for a in ("sift", "gms", "orb")}
+    for cell, (rms, count) in got.items():
+        assert count == cells[cell][1] and np.isclose(rms, cells[cell][0], rtol=1e-4), cell
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["sharded_ba", "ring", "pair_parallel"])
+def test_cuda_nccl_world_of_one_matches_unsharded(cuda_device, path):
+    """A world-size-1 NCCL group on the card: sharded_bundle_adjust against
+    bundle_adjust (cameras within 1e-2 free of the scale gauge, the final
+    cost within rtol 1e-3) and twice bit for bit equal; ring_nn_search on a
+    rendered pair's dense SIFT against one nn_search call (one launch,
+    indices equal, distances rtol 1e-5); parallel_pair_match against
+    pair_nn, bit for bit."""
+    import datetime
+
+    from tpusfm_torch.dist import group as dg
+
+    group = dg.init_group(0, 1, "cuda:0", "nccl", f"tcp://127.0.0.1:{_free_port()}",
+                          timeout=datetime.timedelta(seconds=120))
+    try:
+        if path == "sharded_ba":
+            from tpusfm_torch.ba.solver import bundle_adjust
+            from tpusfm_torch.ba.synthetic import synth_ba_problem
+            from tpusfm_torch.config import BaConfig
+            from tpusfm_torch.dist.sharded_ba import sharded_bundle_adjust
+
+            K, dist, cams0, X0, obs = synth_ba_problem(5, 600, device=cuda_device)
+            cfg = BaConfig(max_iters=10)
+            c1, _, k1 = bundle_adjust(cams0, X0, obs, K, dist, cfg)
+            first = sharded_bundle_adjust(cams0, X0, obs, K, dist, group, cfg)
+            c2, _, k2 = first
+            assert float((_gauge_free(c1) - _gauge_free(c2)).abs().max()) < 1e-2
+            assert abs(float(k1[-1]) - float(k2[-1])) <= 1e-3 * float(k1[-1])
+            again = sharded_bundle_adjust(cams0, X0, obs, K, dist, group, cfg)
+            assert all(torch.equal(a, b) for a, b in zip(again, first))
+        elif path == "ring":
+            from tpusfm_torch.dist.ring_match import ring_nn_search
+            from tpusfm_torch.stereo.disparity import dense_features
+
+            left, right, _ = (torch.from_numpy(a).to(cuda_device)
+                              for a in render_stereo_pair(150, 200))
+            f1, f2 = dense_features(left), dense_features(right)
+            args = (f1.desc, f2.desc, f2.kpts.mask.float())
+            before = td.launches
+            ri, rb, rs = ring_nn_search(*args, group)
+            assert td.launches == before + 1
+            ni, nb, ns = td.nn_search(*args)
+            assert torch.equal(ri, ni)
+            torch.testing.assert_close(rb, nb, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(rs, ns, rtol=1e-5, atol=1e-6)
+        else:
+            from tpusfm_torch.bench.scaling import pair_inputs
+            from tpusfm_torch.dist.pair_parallel import pair_nn, parallel_pair_match
+
+            f1, f2, _, _ = pair_inputs(2, device=cuda_device)
+            args = (f1.desc, f2.desc, f1.kpts.mask, f2.kpts.mask)
+            assert all(torch.equal(a, b) for a, b in zip(parallel_pair_match(*args, group),
+                                                          pair_nn(*args)))
+    finally:
+        dg.close(group)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["bench_ba_iters", "bench_ba_tm"])
+def test_cuda_ba_bench_runs_on_the_card(cuda_device, fn):
+    """What `bench --ba` runs first, on the card at tests/test_torch_bench.py's
+    sizes: the cost falls, a positive rate, the card named as backend."""
+    import argparse
+
+    from tpusfm_torch.bench import scaling
+
+    args = argparse.Namespace(views=4, tracks=256, iters=5, tm_sizes="256x4", cpu=False)
+    got = getattr(scaling, fn)(args)
+    if fn == "bench_ba_tm":
+        assert list(got) == ["256t_4v"]
+        got = got["256t_4v"]
+        assert got["iters_per_s"] > 0
+    else:
+        assert got["backend"] == "cuda" and got["value"] > 0
+    assert got["n_obs"] == 768 and got["cost_drop"] > 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_scaling_curve_runs_on_the_card(cuda_device):
+    """bench_scaling over worlds of 1 and 2 ranks sharing the card, its BA
+    cut to 512 tracks over 4 views and 3 LM iterations: every section at
+    every size with a positive rate, and the ring's indices in each world
+    equal to one nn_search call on the card."""
+    import argparse
+
+    import numpy as np
+
+    from tpusfm_torch.bench import scaling
+
+    outputs = {}
+    out = scaling.bench_scaling(argparse.Namespace(views=4, tracks=512, iters=3, cpu=False),
+                                sizes=(1, 2), outputs=outputs)
+    for key in ("sharded_ba", "ring_nn", "pair_parallel_two_view"):
+        assert list(out[key]) == [1, 2] and min(out[key].values()) > 0, key
+    pipe = out["pipeline_vs_serial_two_view"]
+    assert list(pipe) == ["serial_1dev", "pipeline_2stage"] and min(pipe.values()) > 0
+    q, db, m = (torch.from_numpy(a).to(cuda_device) for a in scaling.ring_inputs())
+    idx = td.nn_search(q, db, m)[0].cpu().numpy()
+    for n in (1, 2):
+        np.testing.assert_array_equal(outputs[n]["ring"][0], idx, err_msg=f"n={n}")

@@ -1,7 +1,7 @@
 """Parity of the port's dense descriptors and disparity benchmark
 (tpusfm_torch.features.dense, tpusfm_torch.stereo.disparity) with tpusfm's
 on CPU, on a seeded 128x96 stereo pair with known disparity
-(chip_smoke.render_stereo_pair; the reference's left1/right1 are absent)."""
+(torch_scenes.render_stereo_pair; the reference's left1/right1 are absent)."""
 import dataclasses
 import functools
 
@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chip_smoke import render_stereo_pair
+from torch_scenes import render_stereo_pair
 from tpusfm.config import PipelineConfig as JaxPipelineConfig
 from tpusfm.features.dense import dense_sift_descriptors as jax_dense_sift
 from tpusfm.match.kmeans import kmeans as jax_kmeans

@@ -204,7 +204,7 @@ def _repeat_outputs(group, t):
 
 def _suite(group, workdir):
     """Every sharded function of the port on this rank; returns its outputs."""
-    from chip_smoke import render_stereo_pair, synthetic_sequence_features
+    from torch_scenes import render_stereo_pair, synthetic_sequence_features
     from tpusfm_torch.ba.track_solver import to_track_major
     from tpusfm_torch.ba.tracks import Observations
     from tpusfm_torch.config import BaConfig, GmsConfig, PipelineConfig
@@ -275,7 +275,7 @@ def _pipelined_problem():
     """tests/test_dist.py's pipelined two-view problem (its configuration,
     M = 3 micro-batches, micro-batch i adding i * 1e-4 to image 1) on the
     rendered pair of tests/test_e2e.py: (pairs (3, 2, 160, 160), intr, cfg)."""
-    from chip_smoke import render_small_pair
+    from torch_scenes import render_small_pair
     from tpusfm_torch.config import MatchConfig, PipelineConfig, RansacConfig, SiftConfig
     from tpusfm_torch.types import CameraIntrinsics
 
@@ -337,7 +337,7 @@ def _pipeline_outputs(group):
 
 
 def _sequence_outputs(group):
-    from chip_smoke import synthetic_sequence_features
+    from torch_scenes import synthetic_sequence_features
     from tpusfm_torch.ba.multiview import incremental_sfm
 
     rec = incremental_sfm(*synthetic_sequence_features(device="cpu"), algo="bf", group=group)
@@ -563,7 +563,7 @@ def _tpusfm_single(name):
         inl = gms_filter(kp(z["fused_xy1"]), kp(z["fused_xy2"]), m, (640, 480), (640, 480),
                          GmsConfig()).mask
         return tuple(np.asarray(v) for v in (idx, best, second, inl))
-    from chip_smoke import synthetic_sequence_features
+    from torch_scenes import synthetic_sequence_features
 
     if name == "two_view":
         from tpusfm.sfm.two_view import two_view_batch
@@ -890,7 +890,7 @@ def test_parallel_two_view(world2):
     3), so the poses differ at the level of one minimal sample's error:
     1.5e-2 and 0.9966 here, with the port 4.7e-3 from the true relative
     rotation and tpusfm 1.0e-2."""
-    from chip_smoke import synthetic_sequence_features
+    from torch_scenes import synthetic_sequence_features
     from tpusfm_torch.config import PipelineConfig
     from tpusfm_torch.sfm.two_view import two_view_batch
 
@@ -1026,7 +1026,7 @@ def test_disparity_cells_with_a_group(world2, alg, density):
     ORB cells against tpusfm's on its mesh: SIFT equal; ORB's Hamming
     distances tie often, and tpusfm's ring keeps the incumbent of its ring
     order there, so its count may differ by a few pixels."""
-    from chip_smoke import render_stereo_pair
+    from torch_scenes import render_stereo_pair
     from tpusfm_torch.stereo.disparity import run_disparity_benchmark
 
     _, outs = world2
@@ -1052,7 +1052,7 @@ def _tpusfm_disparity(alg, density, mesh):
     take the port's SIFT features, as test_torch_disparity.py runs them."""
     import jax.numpy as jnp
 
-    from chip_smoke import render_stereo_pair
+    from torch_scenes import render_stereo_pair
     from test_torch_disparity import _shared_sift
     from tpusfm.dist.mesh import make_mesh
     from tpusfm.stereo import disparity as jd

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chip_smoke import render_small_pair
+from torch_scenes import render_small_pair
 from test_gms_oracle import _gms_oracle_one_scale
 from tpusfm.config import GmsConfig as JaxGmsConfig
 from tpusfm.match.gms import _cell_index as jax_cell_index

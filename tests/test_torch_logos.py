@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chip_smoke import render_small_pair
+from torch_scenes import render_small_pair
 from test_gms_oracle import _logos_oracle
 from tpusfm.config import LogosConfig as JaxLogosConfig
 from tpusfm.match.kmeans import assign_words as jax_assign_words

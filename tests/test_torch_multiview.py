@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chip_smoke import synthetic_sequence_features
+from torch_scenes import synthetic_sequence_features
 from tpusfm.ba.multiview import incremental_sfm as jax_incremental_sfm
 from tpusfm.config import PipelineConfig as JaxPipelineConfig
 from tpusfm.geometry.pnp import pnp_ransac as jax_pnp_ransac

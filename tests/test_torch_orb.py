@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chip_smoke import render_small_pair
+from torch_scenes import render_small_pair
 from tpusfm.config import OrbConfig as JaxOrbConfig
 from tpusfm.features.orb import dense_orb_descriptors as jax_dense_orb
 from tpusfm.features.orb import orb_detect_and_compute as jax_orb

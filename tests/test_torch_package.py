@@ -67,23 +67,23 @@ def test_importing_the_port_does_not_import_jax():
     assert r.returncode == 0, r.stderr
 
 
-def test_no_source_of_the_port_or_chip_smoke_imports_jax_or_tpusfm():
+def test_no_source_of_the_port_or_its_test_scenes_imports_jax_or_tpusfm():
     """Imports inside functions too: every import statement of every module
-    of the port and of chip_smoke.py names neither jax nor tpusfm, nor the
-    repo's bench.py or scripts/ (the port keeps its own benchmarks), and
-    the port never imports chip_smoke."""
+    of the port and of tests/torch_scenes.py names neither jax nor tpusfm,
+    nor the repo's bench.py or scripts/ (the port keeps its own benchmarks),
+    and the port never imports the test scenes."""
     import ast
     import pathlib
 
     root = pathlib.Path(__file__).resolve().parents[1]
-    files = sorted((root / "tpusfm_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    files = sorted((root / "tpusfm_torch").rglob("*.py")) + [root / "tests" / "torch_scenes.py"]
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
             banned = ("jax", "jaxlib", "tpusfm", "bench", "scaling_bench", "scripts") + (
-                ("chip_smoke",) if f.name != "chip_smoke.py" else ())
+                ("torch_scenes",) if f.name != "torch_scenes.py" else ())
             bad += [(f.name, n) for n in names if n.split(".")[0] in banned]
     assert len(files) > 40 and not bad, bad
     for sub in ("cli", "dist", "viz", "bench"):

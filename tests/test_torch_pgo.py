@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chip_smoke import noisy_loop_problem, render_sequence
+from torch_scenes import noisy_loop_problem, render_sequence
 from test_pgo import _noisy_loop_problem
 from tpusfm.config import MatchConfig as JaxMatchConfig
 from tpusfm.config import PipelineConfig as JaxPipelineConfig
@@ -126,7 +126,7 @@ def test_chain_odometry_matches_tpusfm():
 
 
 def test_loop_generator_is_tpusfms():
-    """chip_smoke.noisy_loop_problem, the torch rewrite of tests/test_pgo.py's
+    """torch_scenes.noisy_loop_problem, the torch rewrite of tests/test_pgo.py's
     generator, gives its poses and measurements (1e-6)."""
     want = _noisy_loop_problem(n=12, seed=2)
     got = noisy_loop_problem(n=12, seed=2, device="cpu")

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chip_smoke import render_small_pair
+from torch_scenes import render_small_pair
 from tpusfm.config import MatchConfig, PipelineConfig, RansacConfig, SiftConfig
 from tpusfm.sfm.fused import fused_two_view as jax_fused_two_view
 from tpusfm.sfm import pipelined as jax_pipelined

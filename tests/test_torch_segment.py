@@ -93,7 +93,7 @@ def test_a_plan_repeats_and_serves_every_iteration(kind):
 def test_solvers_take_the_same_steps_with_their_plans_prebuilt():
     """build_normal_blocks, tm_normal_and_schur and build_normal_system give
     the same bits whether they build their plans or are handed them."""
-    from chip_smoke import noisy_loop_problem
+    from torch_scenes import noisy_loop_problem
     from tpusfm_torch.ba import solver, track_solver
     from tpusfm_torch.ba.synthetic import synth_ba_problem
     from tpusfm_torch.pgo import graph
@@ -145,7 +145,7 @@ def test_no_scatter_add_is_left_on_the_solvers(no_scatter_add, which):
     """With every scatter-add of torch made to raise, each solver runs to
     its end at a small size (the sharded solvers run the same functions
     through reduce_fn)."""
-    from chip_smoke import noisy_loop_problem, synthetic_sequence_features
+    from torch_scenes import noisy_loop_problem, synthetic_sequence_features
     from tpusfm_torch.ba.multiview import incremental_sfm
     from tpusfm_torch.ba.solver import bundle_adjust
     from tpusfm_torch.ba.synthetic import synth_ba_problem

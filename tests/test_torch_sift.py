@@ -10,7 +10,7 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter
 
-from chip_smoke import render_small_pair as _render_views
+from torch_scenes import render_small_pair as _render_views
 from test_torch_two_view import _assert_same_result, _jax_table
 from tpusfm.config import MatchConfig, PipelineConfig, RansacConfig, SiftConfig
 from tpusfm.features import scalespace as jss

@@ -22,7 +22,7 @@ import torch
 from benchmark.reference import config as ref_config
 from benchmark.reference import scalespace as ref_ss
 from benchmark.reference.sift import sift_detect_and_compute as ref_sift
-from chip_smoke import render_small_pair
+from torch_scenes import render_small_pair
 from tpusfm_torch.config import SiftConfig
 from tpusfm_torch.features import replay
 from tpusfm_torch.features import scalespace as ss

@@ -4,8 +4,8 @@ the box filter, median blur, dilation and erosion
 StereoBM and its display normalization (stereo.block_matching), the bf16
 opt-in of dense_raw_match, portrait mode (stereo.portrait) and the image
 I/O it needs (io.image), on tests/test_stereo.py's synthetic cases and on
-seeded renders of chip_smoke's stereo scene (the reference's pairs are
-absent)."""
+seeded renders of tests/torch_scenes.py's stereo scene (the reference's
+pairs are absent)."""
 import dataclasses
 import pathlib
 
@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chip_smoke import render_stereo_pair, render_stereo_rgb
+from torch_scenes import render_stereo_pair, render_stereo_rgb
 from tpusfm import native as jnative
 from tpusfm.config import StereoBMConfig as JaxStereoBMConfig
 from tpusfm.io import image as jimage
@@ -199,7 +199,7 @@ def test_stereo_bm_recovers_a_constant_shift_as_tpusfm():
 
 def test_stereo_bm_with_the_reference_config_on_a_render():
     """StereoBMConfig() (224 disparities from -39) on the 128x96 render of
-    chip_smoke's scene. Its SAD costs reach ~1e6, where the f32 spacing is
+    torch_scenes.render_stereo_pair. Its SAD costs reach ~1e6, where the f32 spacing is
     0.06-0.125, and the subpixel parabola divides by their second
     difference: subpixel disparities agree within 1e-3 here, not the
     shift's 1e-4. Against the known disparity: >= 95% of the valid pixels

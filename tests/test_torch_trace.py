@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import render_small_pair
+from torch_scenes import render_small_pair
 from tpusfm_torch.config import PipelineConfig, SiftConfig
 from tpusfm_torch.features.sift import sift_detect_and_compute
 from tpusfm_torch.sfm.two_view import two_view_batch, two_view_sfm

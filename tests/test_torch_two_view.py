@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from __graft_entry__ import entry
-from chip_smoke import render_small_pair as _render_views
+from torch_scenes import render_small_pair as _render_views
 from tpusfm.config import GmsConfig, MatchConfig, PipelineConfig, RansacConfig, SiftConfig
 from tpusfm.features.sift import sift_detect_and_compute as jax_sift
 from tpusfm.match.kmeans import kmeans as jax_kmeans

@@ -12,7 +12,7 @@ path gathers a whole gradient layer for each keypoint slot under vmap on
 the CPU, about 8 bytes x FEATURES x the upsampled octave's pixels (244 GB
 at half of 2016x1512), so keep that product to a few GB.
 
-``loop``: chip_smoke.py's 1,024-node pose-graph loop (phase 11: seed 7,
+``loop``: torch_scenes.noisy_loop_problem's 1,024-node pose-graph loop (seed 7,
 noise 0.01, chords every 64 and 256 nodes, the 66 exact edges weighted 5,
 20 LM iterations, 224 CG steps, Huber delta 1e4) through both packages'
 dense and CG solvers in f32: final cost and ATE against the true poses.
@@ -78,7 +78,7 @@ def two_view(h: int, w: int, n_features: int):
 
 
 def loop():
-    from chip_smoke import noisy_loop_problem
+    from torch_scenes import noisy_loop_problem
     from tpusfm.pgo import graph as jgraph
     from tpusfm_torch.pgo import PgoConfig, optimize_pose_graph, optimize_pose_graph_cg
 

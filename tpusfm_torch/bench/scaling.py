@@ -221,16 +221,6 @@ def _timed(device, fn, reps):
     return (time.perf_counter() - t0) / reps, r
 
 
-def _log_launches(section, n, rank, count):
-    """Append a section's NN-search launches on this rank to
-    $TPUSFM_LAUNCH_LOG (one JSON line), as the CLI does for a subcommand."""
-    path = os.environ.get("TPUSFM_LAUNCH_LOG")
-    if path:
-        with open(path, "a") as f:
-            f.write(json.dumps({"cmd": f"bench_{section}", "n": n, "rank": rank,
-                                "nn_search_launches": count}) + "\n")
-
-
 def _world_sections(group, args, n_pairs):
     """Every section of the curve on this rank of a world of group.size
     ranks. Returns (rates, outputs): rates under tpusfm's keys, outputs the
@@ -241,7 +231,6 @@ def _world_sections(group, args, n_pairs):
     from tpusfm_torch.dist.pair_parallel import parallel_two_view
     from tpusfm_torch.dist.ring_match import ring_nn_search
     from tpusfm_torch.dist.sharded_ba import sharded_bundle_adjust
-    from tpusfm_torch.kernels import distance
     from tpusfm_torch.sfm.pipelined import two_view_pipelined
 
     dev, n = group.device, group.size
@@ -255,29 +244,23 @@ def _world_sections(group, args, n_pairs):
     rates["sharded_ba"] = round(args.iters / dt, 2)
 
     q, db, m = (torch.from_numpy(a).to(dev) for a in ring_inputs())
-    distance.launches = 0
     ring_nn_search(q, db, m, group)
     dt, r = _timed(dev, lambda: ring_nn_search(q, db, m, group), 3)
     rates["ring_nn"] = round(RING_ROWS * RING_ROWS / dt / 1e9, 3)  # G pair-distances/s
-    _log_launches("ring_nn", n, group.rank, distance.launches)
     outputs["ring"] = tuple(t.cpu().numpy() for t in r)
 
     f1, f2, intr, cfg2 = pair_inputs(n_pairs, device=dev)
-    distance.launches = 0
     parallel_two_view(f1, f2, intr, group, cfg2)
     dt, r = _timed(dev, lambda: parallel_two_view(f1, f2, intr, group, cfg2), 3)
     rates["pair_parallel_two_view"] = round(n_pairs / dt, 2)  # pairs/s
-    _log_launches("pair_parallel", n, group.rank, distance.launches)
     outputs["pair_parallel"] = {"R": r.R.cpu().numpy(), "t": r.t.cpu().numpy(),
                                 "n_inliers": r.n_inliers.cpu().numpy()}
 
     if n in (2, 4):
         pairs, intr3, cfg3 = pipeline_inputs(dev)
-        distance.launches = 0
         two_view_pipelined(pairs, intr3, group, cfg3)
         dt, r = _timed(dev, lambda: two_view_pipelined(pairs, intr3, group, cfg3), 2)
         rates[f"pipeline_{n}stage"] = round(PIPE_MICRO / dt, 2)
-        _log_launches("pipeline", n, group.rank, distance.launches)
         outputs["pipeline"] = {"n_inliers": r.n_inliers.cpu().numpy()}
     return rates, outputs
 
@@ -381,14 +364,12 @@ def bench_scaling(args, sizes=None, outputs=None):
     def serial():
         return [st[1](st[0](pairs[i])) for i in range(PIPE_MICRO)]
 
-    before = distance.launches
     serial()
     _sync(device)
     t0 = time.perf_counter()
     for _ in range(2):
         serial()
     _sync(device)
-    _log_launches("pipeline_serial", 1, 0, distance.launches - before)
     out["pipeline_vs_serial_two_view"] = {
         "serial_1dev": round(PIPE_MICRO / ((time.perf_counter() - t0) / 2), 2), **pipelined}
     return out

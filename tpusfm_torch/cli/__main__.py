@@ -16,9 +16,7 @@ printed lines) are tpusfm's. Every subcommand runs on the CUDA card;
 TPUSFM_PLATFORM=cpu runs it on the CPU instead. ``--devices N`` (sfm-seq,
 pose-graph, disparity) runs over N processes started by
 ``python -m torch.distributed.run --standalone --nproc-per-node N
--m tpusfm_torch.cli ...``; rank 0 prints and writes the files. With
-TPUSFM_LAUNCH_LOG=<file> set, every process appends its NN-search kernel
-launches to that file as one JSON line when its subcommand ends.
+-m tpusfm_torch.cli ...``; rank 0 prints and writes the files.
 
 Run `python -m tpusfm_torch.cli <cmd> --help` for options. Defaults point
 at the reference's datasets ($TPUSFM_DATA or reference/SfM-GMS).
@@ -534,26 +532,12 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _log_launches(args, path):
-    """Append this process's NN-search kernel launches (one JSON line) to
-    ``path``: the count of a CLI run, rank by rank, for callers that start
-    the CLI as a subprocess."""
-    from tpusfm_torch.kernels import distance
-
-    rank = 0 if args.group is None else args.group.rank
-    with open(path, "a") as f:
-        f.write(json.dumps({"cmd": args.cmd, "rank": rank,
-                            "nn_search_launches": distance.launches}) + "\n")
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
     args.device = _device()
     args.group = None
     try:
         args.fn(args)
-        if os.environ.get("TPUSFM_LAUNCH_LOG"):
-            _log_launches(args, os.environ["TPUSFM_LAUNCH_LOG"])
     finally:
         from tpusfm_torch.dist.group import close
 

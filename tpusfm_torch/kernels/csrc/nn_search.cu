@@ -102,7 +102,7 @@
 //     query and a merge kernel reduces the S partials lexicographically,
 //     in the same C call.
 //
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): f32 0.48 ms
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (CUDA events): f32 0.48 ms
 // (65% of its bound), bf16 0.18 ms (28%), Hamming at the dense ORB shape
 // ~13.3 ms (55% of its int8 bound; the earlier CUDA-core popcount kernel
 // took 240 ms).
