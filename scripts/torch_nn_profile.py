@@ -63,14 +63,30 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def short(name: str) -> str:
-    kind = re.search(r"(F32|BF16|Bits<[^>]*>)", name)
+    kind = re.search(r"(F32|BF16Dual|BF16|Bits<[^>]*>)", name)
     return KERNELS.search(name).group(1) + (f"<{kind.group(1)}>" if kind else "")
 
 
 def build_summary() -> dict:
-    """Registers of each kernel, spill stores and C7515 from the build log."""
+    """Registers of each kernel (by its short name), spill stores and C7515
+    from the build log."""
     log = distance.build_log
-    return {"registers": [int(r) for r in re.findall(r"Used (\d+) registers", log)],
+    entries = re.findall(r"Compiling entry function '(\w+)'", log)
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(entries), capture_output=True,
+                               text=True, check=True).stdout.split("\n")
+    except (OSError, subprocess.CalledProcessError):
+        names = entries
+    regs = {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = names[entries.index(m.group(1))]
+            name = short(name) if KERNELS.search(name) else name
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs[name] = int(m.group(1))
+    return {"registers": regs,
             "spill_store_bytes": sum(map(int, re.findall(r"(\d+) bytes spill stores", log))),
             "wgmma_serialized_c7515": "C7515" in log}
 

@@ -102,20 +102,59 @@ def test_cuda_l2_kernel_at_its_edges(cuda_device, dtype, B, nq, ndb, d):
     compare(td, f"{dtype} {(B, nq, ndb, d)}", edge_case("random", B, nq, ndb, d, dtype)[:3])
 
 
+# One query tile for each SM of a 132-SM H100, so one db slice: every block
+# sweeps 513 (odd) or 514 (even) db tiles, and bf16 overlaps its fold.
+LONG_SWEEPS = [(1, 16896, 65600, 128), (1, 16896, 65700, 100), (1, 16896, 65700, 256)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 65, 3000, 128), (1, 63, 129, 37), (1, 10000, 3000, 256)])
+@pytest.mark.parametrize("shape", [(3, 65, 3000, 128), (1, 63, 129, 37), (1, 10000, 3000, 256),
+                                   *LONG_SWEEPS])
 @pytest.mark.parametrize("kind", ["ties", "all_masked", "ragged_mask"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_cuda_l2_kernel_ties_and_masks(cuda_device, dtype, kind, shape):
     """Exact ties either side of db tile and slice boundaries go to the lowest
     valid index; an all-masked db gives -1 and 1e30; masked rows of the
-    ragged last tile never win."""
+    ragged last tile never win. At the long sweeps bf16 takes the
+    overlapped path (two accumulators, the skipping fold: slices of
+    odd and even length; D of two chunks, of one and a part, of four); the
+    short slices and f32 do not."""
     from torch_scenes import compare, edge_case
 
     if shape[0] == 3:   # one query tile a pair: every db tile is its own slice
         assert td.db_splits(*shape, dtype) == 24
+    if shape in LONG_SWEEPS:
+        assert td.db_splits(*shape, dtype) == 1
     q, db, mask, expect = edge_case(kind, *shape, dtype)
+    dual = td.dual_launches
     compare(td, f"{dtype} {shape} {kind}", (q, db, mask), expect=expect)
+    assert td.dual_launches - dual == (dtype == torch.bfloat16 and shape in LONG_SWEEPS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "ties", "ragged_mask"])
+def test_cuda_bf16_overlapped_fold_is_bit_equal_to_the_serial_fold(cuda_device, kind):
+    """bf16 queries against one db: the first 100 alone (one query tile, the
+    db cut into short slices: one accumulator, the full fold, the slices
+    merged) and among 16,896 (one slice of 513 tiles a block: two
+    accumulators, the skipping fold) give bit-equal idx, best and second,
+    since a top-2 of the same values does not depend on their order. f32
+    and Hamming at that shape never count as overlapped."""
+    from torch_scenes import edge_case
+
+    q, db, mask, _ = edge_case(kind, *LONG_SWEEPS[0], torch.bfloat16)
+    dual = td.dual_launches
+    short = td.nn_search(q[:, :100].contiguous(), db, mask)
+    assert td.db_splits(1, 100, db.shape[1], 128, torch.bfloat16) > 1
+    assert td.dual_launches == dual
+    full = td.nn_search(q, db, mask)
+    assert td.dual_launches == dual + 1
+    for a, b in zip(short, full):
+        assert torch.equal(a, b[:, :100])
+    td.nn_search(q.float(), db.float(), mask)
+    words = q.view(torch.int32)[..., :8].contiguous()
+    td.nn_search(words, db.view(torch.int32)[..., :8].contiguous(), mask, metric="hamming")
+    assert td.dual_launches == dual + 1
 
 
 @pytest.mark.cuda
@@ -171,22 +210,32 @@ def test_two_view_on_cuda_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("features", ["dense_orb", "dense_sift"])
+@pytest.mark.parametrize("features", ["dense_orb", "dense_sift", "dense_sift_bf16"])
 def test_cuda_dense_modes_match_plain_version_on_real_descriptors(cuda_device, features):
     """The kernel in its dense modes on a rendered stereo pair's own
     descriptors (one query per pixel): Hamming on dense ORB words exactly
     equal, border rows masked; f32 L2 on dense SIFT within rtol 1e-5,
-    atol 1e-4."""
+    atol 1e-4; bf16 L2 on the same descriptors at 375x450 (a sweep of 1,319
+    db tiles a block) within the same, through the overlapped path,
+    where some warp-tiles and under a fifth of them take the full fold."""
     from torch_scenes import compare, render_stereo_pair
     from tpusfm_torch.stereo.disparity import dense_features, dense_orb_features
 
-    left, right, _ = (torch.from_numpy(a).to(cuda_device) for a in render_stereo_pair(150, 200))
+    size = (375, 450) if features == "dense_sift_bf16" else (150, 200)
+    left, right, _ = (torch.from_numpy(a).to(cuda_device) for a in render_stereo_pair(*size))
     make = dense_orb_features if features == "dense_orb" else dense_features
     f1, f2 = make(left), make(right)
     metric = "hamming" if features == "dense_orb" else "l2"
     if features == "dense_orb":
         assert f1.desc.dtype == torch.uint32 and not bool(f2.kpts.mask.all())
-    compare(td, features, (f1.desc, f2.desc, f2.kpts.mask.float()), metric)
+    q, db = f1.desc, f2.desc
+    if features == "dense_sift_bf16":
+        q, db = q.bfloat16(), db.bfloat16()
+    dual, counts = td.dual_launches, td.full_update_counts()
+    compare(td, features, (q, db, f2.kpts.mask.float()), metric)
+    assert td.dual_launches - dual == (features == "dense_sift_bf16")
+    if features == "dense_sift_bf16":
+        assert 0.0 < td.full_update_share(since=counts) < 0.2
 
 
 @pytest.mark.cuda

@@ -65,10 +65,21 @@
 //     ascending order: ~8 instructions a value (most at half rate), 64
 //     values a thread a tile, ~1,800 issue cycles a tile on each scheduler
 //     against 6,144 tensor cycles (f32) or 1,024 (bf16), and the two
-//     consumers run it in step. Overlapping it with the next tile's products
-//     (ping-pong consumers; a second accumulator) and skipping values above
-//     the quad's running second were tried; none was faster at the main
-//     path's shape (PERF.md), so bf16 stays bound by this epilogue.
+//     consumers run it in step.
+//   * bf16 where every block sweeps at least DUAL_SWEEP db tiles (the dense
+//     searches: 1,319 tiles at 450x375, 22,921 in the portrait) runs
+//     BF16Dual. Its fold first bounds each value from below with the same
+//     operations rounded down (add.rm, fma.rm) and keeps each row's minimum,
+//     3 instructions a value; only a warp with a lane whose minimum lies
+//     below that row's running second, or is NaN, runs the full fold, so
+//     the result is bit for bit the one-accumulator path's. Over a long
+//     sweep few warp-tiles need it (1.2% at the portrait's). Two
+//     accumulators let tile t be folded after tile t + 1's wgmma are issued.
+//     Issuing a wgmma holds the warp until the tensor cores take it,
+//     though, so the fold overlaps only the products still queued when the
+//     issue ends; ping-pong consumers and a scan interleaved between the
+//     wgmma did no better (PERF.md). Shorter sweeps keep one accumulator:
+//     there the running seconds still skip little.
 //   * Hamming's epilogue is integer. Each db column has a key base,
 //     ((popc(db) + 32 D) << s) | column (the column is global, s the bits
 //     the padded db needs), or the sentinel field 64 D + 1 in place of the
@@ -86,7 +97,9 @@
 //     128 tile (8 m64n128k32 a consumer) against ~700 issue cycles of that
 //     epilogue on each scheduler, so the epilogue has to run beside the
 //     products, not after them. Each consumer keeps two accumulators: the
-//     products of db tile t + 1 run while the epilogue of tile t does. That
+//     products of db tile t + 1 are issued before the epilogue of tile t
+//     (ptxas ends a wgmma group at each pass of the chunk loop, so the
+//     wait_group 1 below also waits for tile t + 1's chunks: PERF.md). That
 //     needs 128 accumulator and 64 key registers a thread: setmaxnreg gives
 //     the consumers 232 registers a thread and the producer 40. The plan
 //     takes this path (Bits<uint32_t, true>) where the queries are resident
@@ -105,17 +118,21 @@
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (CUDA events): f32 0.48 ms
 // (65% of its bound), bf16 0.18 ms (28%), Hamming at the dense ORB shape
 // ~13.3 ms (55% of its int8 bound; the earlier CUDA-core popcount kernel
-// took 240 ms).
-// scripts/torch_nn_ablate.py: there the products and the db streaming alone
-// take ~7.7 ms, the epilogue and the streaming alone ~9.9 ms, the streaming
-// alone ~3.7 ms, so the integer epilogue is what bounds it now. ptxas -v
-// (CUDA 12.8), no spills anywhere: f32 134 registers, bf16 136, Hamming 130
-// (64-bit keys 134), the two-accumulator kernel 168 at launch; dynamic
-// shared memory 229,632 bytes at f32, D = 128, 164,096 at bf16, D = 128
-// and at Hamming, 8 words.
+// took 240 ms), bf16 at 1 x 168,750^2 13.7 ms (20.3 ms on one accumulator)
+// and at a portrait launch's sweep, 16,896 rows against 2,933,814, 23.0 ms
+// against 35.3 (56% of its 12.83 ms bound).
+// scripts/torch_nn_ablate.py: at the dense ORB shape the products and the db
+// streaming alone take ~7.7 ms, the epilogue and the streaming alone
+// ~9.9 ms, the streaming alone ~3.7 ms; at the portrait's sweep (BF16Dual)
+// 15.8, 15.9 and 6.8 ms. ptxas -v, no spills anywhere: f32 134 registers,
+// bf16 136, Hamming 130 (64-bit keys 134), the two-accumulator kernels 168
+// at launch; dynamic shared memory 229,632 bytes at f32, D = 128, 164,096
+// at bf16, D = 128 and at Hamming, 8 words.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -146,6 +163,9 @@ struct BF16 {
   using Acc = float;
   static constexpr int planes = 1, elem = 2;
   static constexpr bool bits = false, dual = false;
+};
+struct BF16Dual : BF16 {  // two accumulators and the skipping top-2 fold
+  static constexpr bool dual = true;
 };
 struct BitsOperand {
   static constexpr int planes = 1, elem = 32;
@@ -421,13 +441,37 @@ __device__ __forceinline__ void merge_top2(float& bb, float& ss, int& ix, float 
 // products, so the loads overlap them), update() folds in the tile's
 // accumulators, result() merges the quad and yields (idx, best, second).
 
+// Fold counts of the skipping L2 top-2 (BF16Dual), summed over every call on
+// this device and never reset: warp-tiles that took the full fold, and all
+// warp-tiles. Read by tpusfm_nn_fold_counts.
+__device__ unsigned long long fold_counts[2];
+
+// min that returns NaN if either input is NaN (fminf would drop it).
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // L2: (best, second, idx) in f32, dist = max(|q|^2 + pen - 2 q.db, 0); pen
 // is +inf where masked, so those columns never win. Columns come in
 // ascending order, so a strict < keeps the lowest index.
+// Skip (BF16Dual only): update() first bounds each value from below with
+// the same operations rounded down, add.rm and fma.rm (monotone rounding:
+// bound >= second implies value >= second), and keeps their minimum. A
+// value at or above its row's running second (which is >= 0) changes
+// nothing under the clamp, the strict < and the column order, so a warp in
+// which no lane has a row whose minimum lies below its second skips the
+// fold. NaN, which the clamp makes 0, keeps the minimum NaN, and the fold
+// runs. The bound's own instructions also keep the compiler from holding
+// its values for the fold. full and tiles count the warp-tiles folded and
+// seen.
+template <bool Skip = false>
 struct L2Top2 {
   float qn[2], best[2], second[2];
   int bidx[2];
   float2 p[16];
+  unsigned full = 0, tiles = 0;
 
   __device__ __forceinline__ L2Top2(const float* qnorm, int r0, int Nq, int, int) {
 #pragma unroll
@@ -443,7 +487,32 @@ struct L2Top2 {
 #pragma unroll
     for (int j = 0; j < 16; ++j) p[j] = __ldg(pt + 4 * j);
   }
+  // Whether a value of the tile may lie below its row's running second.
+  __device__ __forceinline__ bool below(const float* d) const {
+    bool any = false;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float m[4];  // four independent chains
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float s = __fadd_rd(qn[h], e ? p[j].y : p[j].x);
+          const float v = __fmaf_rd(-2.f, d[4 * j + 2 * h + e], s);
+          const int c = (2 * j + e) & 3;
+          m[c] = j < 2 ? v : min_nan(m[c], v);
+        }
+      }
+      any |= !(min_nan(min_nan(m[0], m[1]), min_nan(m[2], m[3])) >= second[h]);
+    }
+    return any;
+  }
   __device__ __forceinline__ void update(const float* d, int col0) {
+    if constexpr (Skip) {
+      ++tiles;
+      if (!__any_sync(0xffffffffu, below(d))) return;
+      ++full;
+    }
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
 #pragma unroll
@@ -549,7 +618,11 @@ struct KeyTop2 {
 
 template <class V>
 struct TopOf {
-  using type = L2Top2;
+  using type = L2Top2<>;
+};
+template <>
+struct TopOf<BF16Dual> {
+  using type = L2Top2<true>;
 };
 template <class K, bool Dual>
 struct TopOf<Bits<K, Dual>> {
@@ -631,7 +704,7 @@ nn_wgmma_kernel(const uint8_t* __restrict__ qp, const uint8_t* __restrict__ dp,
   const int r0 = qt * ROWS + c * 64 + (ct >> 5) * 16 + (lane >> 2);  // and r0 + 8
   typename TopOf<V>::type top(qn + (size_t)b * Nq, r0, Nq, kshift, ksent);
 
-  if constexpr (V::dual) {
+  if constexpr (V::dual && V::bits) {
     if (t0 < t1) {
       // Two accumulators: the products of tile t + 1 run while the epilogue
       // of tile t does, so the tensor cores always have queued work. The
@@ -693,6 +766,70 @@ nn_wgmma_kernel(const uint8_t* __restrict__ qp, const uint8_t* __restrict__ dp,
         fence_acc(acc1);
         release();
         top.update(acc1, (t + 1) * ROWS + 2 * quad, 1);
+      }
+    }
+  } else if constexpr (V::dual) {
+    if (t0 < t1) {
+      // bf16, two accumulators: tile t is folded after the wgmma of tile
+      // t + 1 are issued, and each half ends by waiting for every wgmma, so
+      // that none is in flight where the loop turns. With a group in flight
+      // there, as in the Hamming path above, ptxas ends a group at each pass
+      // of the chunk loop and counts those in wait_group 1, which then waits
+      // for the next tile's products too; with the chunks' wgmma issued in
+      // one straight run, it serialises them (C7514). Issuing a wgmma holds
+      // the warp until the tensor cores take it, so the fold overlaps only
+      // the products still queued when the issue ends (PERF.md). The next
+      // tile's penalty row is read after each fold.
+      mbar_wait(qbar, 0);
+      __syncwarp();
+      const uint32_t a_rows = c * 64 / 8 * 1024;
+      float acc0[64], acc1[64];  // no initial values (as in the Hamming path)
+      int stage = 0, rel = 0;
+      uint32_t phase = 0;
+      auto issue = [&](float* d) {
+#pragma unroll 1
+        for (int kc = 0; kc < nkc; ++kc) {
+          mbar_wait(bars + 8 * stage, phase);
+          __syncwarp();
+          fence_acc(d);
+          asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+          mma_chunk(V{}, d, qres + kc * PLANE_SET + a_rows, ring + stage * stage_bytes, kc == 0);
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      };
+      auto done = [&](float* d) {  // wait for the products, release their stages
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        fence_acc(d);
+#pragma unroll 1
+        for (int kc = 0; kc < nkc; ++kc) {
+          mbar_arrive(bars + 8 * (MAX_STAGES + rel));
+          if (++rel == stages) rel = 0;
+        }
+      };
+      top.load(pen, ((size_t)b * ndt + t0) * ROWS, quad);
+      issue(acc0);
+      done(acc0);
+      for (int t = t0; t < t1; t += 2) {
+        const bool next = t + 1 < t1;
+        if (next) issue(acc1);
+        top.update(acc0, t * ROWS + 2 * quad);
+        if (!next) break;
+        top.load(pen, ((size_t)b * ndt + t + 1) * ROWS, quad);
+        done(acc1);
+        const bool again = t + 2 < t1;
+        if (again) issue(acc0);
+        top.update(acc1, (t + 1) * ROWS + 2 * quad);
+        if (!again) break;
+        top.load(pen, ((size_t)b * ndt + t + 2) * ROWS, quad);
+        done(acc0);
+      }
+      if (lane == 0) {  // this warp's fold counts, for tpusfm_nn_fold_counts
+        atomicAdd(&fold_counts[0], (unsigned long long)top.full);
+        atomicAdd(&fold_counts[1], (unsigned long long)top.tiles);
       }
     }
   } else if (t0 < t1) {
@@ -782,9 +919,11 @@ int bit_length(long long v) {
 
 // The launch plan of one call and the workspace regions it needs. Hamming
 // with 32-bit keys takes two accumulators a consumer (dual) where the
-// queries are resident and the ring holds two db tiles. Hamming's key
-// layout: kshift index bits below the field (32: 64-bit keys), ksent the
-// field of a masked column.
+// queries are resident and the ring holds two db tiles; so does bf16 L2,
+// with the skipping fold and its own choice of slices, where besides every
+// block sweeps at least DUAL_SWEEP db tiles. Hamming's key layout: kshift
+// index bits below the field (32: 64-bit keys), ksent the field of a
+// masked column.
 struct Plan {
   int nqt, ndt, nkc, S, resident, stages, dual, kshift, ksent;
   size_t smem, qp, dp, qn, pen, part, total;  // byte offsets into the workspace
@@ -798,17 +937,28 @@ int sm_count() {
 }
 
 // Splits of the db axis: the S that minimises whole waves of work items
-// (one block per SM) times the db tiles an item sweeps, plus one tile's
+// (one block per SM) times the db tiles an item sweeps, plus `setup` tiles'
 // worth of set-up and write-out per item, plus MERGE_TILES for the merge
 // pass when S > 1 (its launch and its read of the partials), so that a
 // small call, whose time is launches, takes none.
 constexpr int MERGE_TILES = 3;
-int choose_splits(int items, int ndt, int nsm) {
+// bf16 with two accumulators and the skipping fold: a slice's first tiles
+// skip little (its running seconds start at 1e30), so each item costs about
+// DUAL_SETUP tiles more. On the portrait's launches a tile took 1.46 us at
+// 848-tile slices (13.4% of warp-tiles folded in full) and 1.00 us at
+// 22,921 (1.2%): DUAL_SETUP fits both. The path is taken where the slices
+// so chosen are at least DUAL_SWEEP tiles: on unit random rows 96% of
+// warp-tiles still fold in full at 64 tiles and 67% at 256, and one
+// accumulator is faster up to 256 tiles and slower from 1,024
+// (scripts/torch_nn_ablate.py gate).
+constexpr int DUAL_SETUP = 400;
+constexpr int DUAL_SWEEP = 512;
+int choose_splits(int items, int ndt, int nsm, int setup) {
   int best_s = 1;
   long long best_cost = -1;
   for (int s = 1; s <= ndt && s <= MAX_SPLITS; ++s) {
     long long waves = ((long long)items * s + nsm - 1) / nsm;
-    long long cost = waves * ((ndt + s - 1) / s + 1) + (s > 1 ? MERGE_TILES : 0);
+    long long cost = waves * ((ndt + s - 1) / s + setup) + (s > 1 ? MERGE_TILES : 0);
     if (best_cost < 0 || cost < best_cost) {
       best_cost = cost;
       best_s = s;
@@ -837,8 +987,16 @@ Plan make_plan(int B, int Nq, int Ndb, int D, int variant) {
   size_t room = SMEM_LIMIT - BAR_BYTES - (p.resident ? qres : 0);
   p.stages = (int)(room / stage < MAX_STAGES ? room / stage : MAX_STAGES);
   p.smem = BAR_BYTES + (p.resident ? qres : 0) + p.stages * stage;
+  const int nsm = sm_count();
+  p.S = p.ndt > 0 ? choose_splits(B * p.nqt, p.ndt, nsm, 1) : 1;
   p.dual = variant == 2 && p.kshift < 32 && p.resident && p.stages >= 2 * p.nkc;
-  p.S = p.ndt > 0 ? choose_splits(B * p.nqt, p.ndt, sm_count()) : 1;
+  if (variant == 1 && p.ndt > 0 && p.resident && p.stages >= 2 * p.nkc) {
+    const int s = choose_splits(B * p.nqt, p.ndt, nsm, DUAL_SETUP);
+    if (p.ndt / s >= DUAL_SWEEP) {
+      p.S = s;
+      p.dual = 1;
+    }
+  }
   p.qp = 0;
   p.dp = align256(p.qp + (size_t)B * p.nqt * p.nkc * set);
   p.qn = align256(p.dp + (size_t)B * p.ndt * p.nkc * set);
@@ -858,11 +1016,12 @@ void prep(const Plan& p, const Operand& q, const Operand& d, int B, int D, cudaS
     prep_bits_kernel<<<grid(q.ntiles + d.ntiles), th, 0, st>>>(q, d, B, D, p.nkc, p.kshift,
                                                                 p.ksent);
   } else {
-    using T = typename V::T;
-    prep_kernel<V><<<grid(q.ntiles), th, 0, st>>>(static_cast<const T*>(q.x), nullptr, q.out,
+    using P = std::conditional_t<V::dual, BF16, V>;  // BF16Dual preps as BF16
+    using T = typename P::T;
+    prep_kernel<P><<<grid(q.ntiles), th, 0, st>>>(static_cast<const T*>(q.x), nullptr, q.out,
                                                   q.norm, nullptr, B, q.N, q.ntiles, D, p.nkc);
     if (d.ntiles > 0)
-      prep_kernel<V><<<grid(d.ntiles), th, 0, st>>>(static_cast<const T*>(d.x), d.mask, d.out,
+      prep_kernel<P><<<grid(d.ntiles), th, 0, st>>>(static_cast<const T*>(d.x), d.mask, d.out,
                                                     nullptr, static_cast<float*>(d.pen), B, d.N,
                                                     d.ntiles, D, p.nkc);
   }
@@ -900,12 +1059,21 @@ int launch(const Plan& p, const void* q, const void* db, const float* mask, uint
 
 // variant: 0 = f32 L2, 1 = bf16 L2, 2 = Hamming on uint32 words (D = words).
 // Bytes of device workspace that tpusfm_nn_search needs for these shapes on
-// the current device; *splits (if not null) gets the number of db slices.
+// the current device; *splits (if not null) gets the number of db slices,
+// *overlap (if not null) 1 where a bf16 call takes the two-accumulator path.
 extern "C" long long tpusfm_nn_workspace(int B, int Nq, int Ndb, int D, int variant,
-                                         int* splits) {
+                                         int* splits, int* overlap) {
   const Plan p = make_plan(B, Nq, Ndb, D, variant);
   if (splits) *splits = p.S;
+  if (overlap) *overlap = variant == 1 && p.dual;
   return (long long)p.total;
+}
+
+// The fold counts of the bf16 two-accumulator path on the current device,
+// summed over every call since the library was loaded: out[0] warp-tiles
+// that took the full top-2 fold, out[1] all warp-tiles. Waits for the device.
+extern "C" int tpusfm_nn_fold_counts(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, fold_counts, sizeof(fold_counts));
 }
 
 // Bits of the key index field of a Hamming call (32: 64-bit keys), for the
@@ -930,7 +1098,9 @@ extern "C" int tpusfm_nn_search(const void* q, const void* db, const void* mask,
   float* so = static_cast<float*>(second);
   const Plan p = make_plan(B, Nq, Ndb, D, variant);
   if (variant == 0) return launch<F32>(p, q, db, m, w, ix, bo, so, B, Nq, Ndb, D, s);
-  if (variant == 1) return launch<BF16>(p, q, db, m, w, ix, bo, so, B, Nq, Ndb, D, s);
+  if (variant == 1)
+    return p.dual ? launch<BF16Dual>(p, q, db, m, w, ix, bo, so, B, Nq, Ndb, D, s)
+                  : launch<BF16>(p, q, db, m, w, ix, bo, so, B, Nq, Ndb, D, s);
   if (p.dual) return launch<Bits<uint32_t, true>>(p, q, db, m, w, ix, bo, so, B, Nq, Ndb, D, s);
   if (p.kshift < 32) return launch<Bits<uint32_t>>(p, q, db, m, w, ix, bo, so, B, Nq, Ndb, D, s);
   return launch<Bits<unsigned long long>>(p, q, db, m, w, ix, bo, so, B, Nq, Ndb, D, s);

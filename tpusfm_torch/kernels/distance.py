@@ -35,6 +35,11 @@ BIG = 1e30
 
 # Number of times nn_search_cuda launched its kernel (one per call).
 launches = 0
+# Of those, the bf16 L2 calls that took the overlapped path: two accumulators
+# a consumer, the top-2 fold of one db tile after the next tile's products
+# are issued, and a fold that skips warp-tiles that cannot enter the top-2
+# (full_update_share).
+dual_launches = 0
 # nvcc's output for the loaded library (-Xptxas -v: registers, shared memory, spills).
 build_log = ""
 
@@ -174,8 +179,10 @@ def load_kernel():
     if _lib is None:
         path = _build()
         lib = ctypes.CDLL(str(path))
-        lib.tpusfm_nn_workspace.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.tpusfm_nn_workspace.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
         lib.tpusfm_nn_workspace.restype = ctypes.c_longlong
+        lib.tpusfm_nn_fold_counts.argtypes = [ctypes.c_void_p]
+        lib.tpusfm_nn_fold_counts.restype = ctypes.c_int
         lib.tpusfm_nn_search.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                                          + [ctypes.c_void_p])
         lib.tpusfm_nn_search.restype = ctypes.c_int
@@ -205,8 +212,30 @@ def db_splits(B: int, nq: int, ndb: int, d: int, dtype=torch.float32,
     """The number of db slices the kernel splits a (B, nq, d) x (B, ndb, d)
     call into on the current CUDA device (1: no merge pass)."""
     s = ctypes.c_int(0)
-    load_kernel().tpusfm_nn_workspace(B, nq, ndb, d, _variant(metric, dtype), ctypes.byref(s))
+    load_kernel().tpusfm_nn_workspace(B, nq, ndb, d, _variant(metric, dtype), ctypes.byref(s),
+                                      None)
     return s.value
+
+
+def full_update_counts() -> tuple[int, int]:
+    """(warp-tiles that took the full top-2 fold, all warp-tiles) of the
+    bf16 overlapped path on the current CUDA device, summed over every
+    call since the library was loaded. Synchronizes with the device."""
+    torch.cuda.synchronize()
+    out = (ctypes.c_ulonglong * 2)()
+    err = load_kernel().tpusfm_nn_fold_counts(out)
+    if err != 0:
+        raise RuntimeError(f"reading the fold counts failed: cudaError {err}")
+    return int(out[0]), int(out[1])
+
+
+def full_update_share(since: tuple[int, int] = (0, 0)) -> float:
+    """The share of warp-tiles that took the full top-2 fold on the bf16
+    overlapped path, over the calls after the ``full_update_counts()``
+    reading ``since`` (default: every call). NaN where there were none."""
+    full, tiles = full_update_counts()
+    tiles -= since[1]
+    return (full - since[0]) / tiles if tiles else float("nan")
 
 
 def key_shift(B: int, nq: int, ndb: int, words: int) -> int:
@@ -220,7 +249,7 @@ def nn_search_cuda(q, db, db_mask=None, metric: str = "l2"):
     whole leading batch axis (the C call runs the prep, product and merge
     kernels on the current stream). Same contract as nn_search_torch:
     Hamming distances are exact and the lowest index wins ties."""
-    global launches
+    global launches, dual_launches
     variant = _variant(metric, q.dtype)
     if db_mask is None:
         db_mask = _ones_mask(db)
@@ -251,7 +280,9 @@ def nn_search_cuda(q, db, db_mask=None, metric: str = "l2"):
         lib = load_kernel()
         with torch.cuda.device(q.device):
             # prepped operands, norms, penalties and per-slice partials
-            ws = torch.empty(lib.tpusfm_nn_workspace(B, nq, ndb, d, variant, None),
+            overlap = ctypes.c_int(0)
+            ws = torch.empty(lib.tpusfm_nn_workspace(B, nq, ndb, d, variant, None,
+                                                     ctypes.byref(overlap)),
                              dtype=torch.uint8, device=q.device)
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.tpusfm_nn_search(
@@ -261,6 +292,7 @@ def nn_search_cuda(q, db, db_mask=None, metric: str = "l2"):
         if err != 0:
             raise RuntimeError(f"nn_search kernel launch failed: cudaError {err}")
         launches += 1
+        dual_launches += overlap.value
     if not batched:
         idx, best, second = idx[0], best[0], second[0]
     return idx, best, second
