@@ -9,7 +9,9 @@ disparity cells, both BA solvers, the dense and CG pose graph, PnP and
 incremental multi-view SfM, StereoBM, the median blur, portrait mode (f32
 and bf16) and calibration on the card against the CPU; both BA solvers,
 both pose-graph solvers and incremental_sfm twice in the default mode, bit
-for bit equal; the ring NN search
+for bit equal, and incremental_sfm so on the 756x567 rail; the
+sequence cell's step at its full size against the benchmark's plain
+reference; the ring NN search
 over two ranks sharing the card (gloo) against one nn_search call, the
 pipelined two-view path over two ranks sharing the card against the serial
 stage chain on the card, the CLI's sfm on the card, and the two-view bench
@@ -452,6 +454,56 @@ def test_cuda_incremental_sfm_matches_cpu(cuda_device):
     np.testing.assert_allclose(cg[:, :3], cc[:, :3], atol=5e-2)
     np.testing.assert_allclose(cg[:, 3:] / np.linalg.norm(cg[1, 3:]),
                                cc[:, 3:] / np.linalg.norm(cc[1, 3:]), atol=5e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_incremental_sfm_repeats_on_the_rail(cuda_device):
+    """incremental_sfm at cli sfm-seq's operating point (6 rendered views
+    at 756x567, 3000 SIFT features, BF over span 3, at most 1000 matches a
+    pair) twice on the same features in the default mode: every view
+    registered, cameras and points bit for bit equal."""
+    import numpy as np
+
+    from tpusfm_torch.ba.multiview import incremental_sfm
+    from tpusfm_torch.config import MatchConfig, PipelineConfig, SiftConfig
+    from tpusfm_torch.features.sift import sift_detect_and_compute
+    from tpusfm_torch.types import CameraIntrinsics
+
+    views, f, _ = render_sequence(6, 567, 756)
+    cfg = PipelineConfig(sift=SiftConfig(max_features=3000), match=MatchConfig(max_matches=1000))
+    feats = [sift_detect_and_compute(torch.from_numpy(v).to(cuda_device), cfg.sift)
+             for v in views]
+    intr = CameraIntrinsics.ideal(f, f, 756 / 2, 567 / 2, cuda_device)
+
+    def run():
+        rec = incremental_sfm(feats, [(756, 567)] * 6, intr, cfg, algo="bf", pair_span=3)
+        assert rec["metrics"]["n_registered"] == 6, rec["metrics"]
+        return [torch.from_numpy(np.asarray(rec[k])) for k in ("cams", "points", "point_valid")]
+    first, second = run(), run()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_sequence_cell_step_matches_the_reference(cuda_device):
+    """The sfm_seq.rail6 cell's step at its full size on the card (the
+    benchmark's driver: SIFT on 6 views at 756x567, incremental_sfm)
+    against the plain reference's step on the same views: every reading
+    within the cell's limits, every view registered."""
+    from benchmark import drivers, harness
+    from benchmark.precision import precision
+
+    spec = harness.load_spec()
+    _, config, traffic = harness.cell_files(spec, "sfm_seq.rail6")
+    driver = drivers.load(config["kind"])(config, traffic, 2 ** 33 + 17, "cuda")
+    driver.setup()
+    views = driver.inputs(0)
+    prog = driver.step(views, keep=True)[0]
+    with precision("f32"):
+        ref = driver.step(views, entries=driver.entries(reference=True), keep=True)[0]
+        got = driver.compare(prog, ref)
+    assert prog["registered"] == ref["registered"] == list(range(6))
+    assert all(got[k] <= lim for k, lim in traffic["limits"].items()), got
 
 
 @pytest.mark.cuda

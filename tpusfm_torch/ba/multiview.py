@@ -5,6 +5,14 @@ The view-registration loop is host-orchestrated (a handful of views), as in
 tpusfm: small tensors cross between host and device on every view. Every
 numeric step (matching, RANSAC, PnP, triangulation, BA) is the batched
 device code of the other modules, on the features' device.
+
+A call records the span ``sfm_seq`` (one sequence) around the stages
+``sfm_seq.match`` (the pairwise loop), ``.tracks`` (tracks, their lookup
+table and undistorted observations), ``.bootstrap`` (views 0 and 1),
+``.register`` (each PnP registration with its new points, retries
+included) and ``.ba`` (each interim and final solve with its pruning;
+``ba.solve`` inside). ``host_reads`` counts, cumulatively, the blocking
+reads of device values on the host that a call makes.
 """
 from __future__ import annotations
 
@@ -23,10 +31,22 @@ from tpusfm_torch.geometry.projection import rodrigues, rodrigues_inv
 from tpusfm_torch.geometry.triangulate import triangulate_dlt
 from tpusfm_torch.geometry.undistort import undistort_points
 from tpusfm_torch.sfm.two_view import match_features
+from tpusfm_torch.utils.timing import span
+
+host_reads = 0      # blocking device-to-host reads by incremental_sfm, cumulative
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
+    global host_reads
+    host_reads += 1
     return t.detach().cpu().numpy()
+
+
+def _item(t: torch.Tensor):
+    """A scalar read on the host (counted as _np's reads are)."""
+    global host_reads
+    host_reads += 1
+    return t.item()
 
 
 def _obs_lookup(obs: Observations, n_tracks: int, n_views: int) -> np.ndarray:
@@ -58,6 +78,12 @@ def incremental_sfm(features, sizes, intr, cfg: PipelineConfig = PipelineConfig(
     observation axis over the group (dist/sharded_ba.py, summed Schur
     blocks); every rank runs the rest of the pipeline on the full inputs
     and returns the same reconstruction."""
+    with span("sfm_seq", 1):
+        return _reconstruct(features, sizes, intr, cfg, algo, pair_span, max_tracks, group)
+
+
+def _reconstruct(features, sizes, intr, cfg, algo, pair_span, max_tracks, group):
+    global host_reads
     V = len(features)
     K, dist = intr.K, intr.dist
     dev = K.device
@@ -77,42 +103,47 @@ def incremental_sfm(features, sizes, intr, cfg: PipelineConfig = PipelineConfig(
 
     # 1. pairwise matches
     pair_matches = {}
-    for i in range(V):
-        for j in range(i + 1, min(V, i + 1 + pair_span)):
-            m = match_features(features[i], features[j], algo, sizes[i], sizes[j], cfg)
-            pair_matches[(i, j)] = (_np(m.idx1), _np(m.idx2), _np(m.mask))
+    with span("sfm_seq.match"):
+        for i in range(V):
+            for j in range(i + 1, min(V, i + 1 + pair_span)):
+                m = match_features(features[i], features[j], algo, sizes[i], sizes[j], cfg)
+                pair_matches[(i, j)] = (_np(m.idx1), _np(m.idx2), _np(m.mask))
 
     # 2. tracks
-    obs, P = build_tracks(pair_matches, [f.kpts.xy for f in features], V, max_tracks=max_tracks)
-    if P < 16:
-        raise RuntimeError(f"too few tracks ({P}) for reconstruction")
-    lookup = _obs_lookup(obs, P, V)
-    obs_xyn = _np(undistort_points(obs.xy, K, dist))
+    with span("sfm_seq.tracks"):
+        obs, P = build_tracks(pair_matches, [f.kpts.xy for f in features], V,
+                              max_tracks=max_tracks)
+        host_reads += V         # build_tracks reads each view's keypoints
+        if P < 16:
+            raise RuntimeError(f"too few tracks ({P}) for reconstruction")
+        lookup = _obs_lookup(obs, P, V)
+        obs_xyn = _np(undistort_points(obs.xy, K, dist))
 
     cams = np.zeros((V, 6), np.float32)
     registered = [0]
     points = np.zeros((P, 3), np.float32)
     point_valid = np.zeros(P, bool)
-    metrics = {"n_tracks": P, "n_obs": obs.n_obs}
+    metrics = {"n_tracks": P, "n_obs": _item(obs.mask.sum())}
 
     # 3. bootstrap from views (0, 1)
-    both = (lookup[:, 0] >= 0) & (lookup[:, 1] >= 0)
-    x0 = on_dev(obs_xyn[lookup[both, 0]])
-    x1 = on_dev(obs_xyn[lookup[both, 1]])
-    E, inl, n_inl = find_essential_ransac(x0, x1, torch.ones(len(x0), dtype=torch.bool,
-                                                             device=dev), focal, cfg.ransac)
-    R, t, cheir = recover_pose(E, x0, x1, inl)
-    metrics["init_inliers"] = int(n_inl)
-    cams[1, :3] = _np(rodrigues_inv(R))
-    cams[1, 3:] = _np(t)
-    registered.append(1)
+    with span("sfm_seq.bootstrap"):
+        both = (lookup[:, 0] >= 0) & (lookup[:, 1] >= 0)
+        x0 = on_dev(obs_xyn[lookup[both, 0]])
+        x1 = on_dev(obs_xyn[lookup[both, 1]])
+        E, inl, n_inl = find_essential_ransac(x0, x1, torch.ones(len(x0), dtype=torch.bool,
+                                                                 device=dev), focal, cfg.ransac)
+        R, t, cheir = recover_pose(E, x0, x1, inl)
+        metrics["init_inliers"] = _item(n_inl)
+        cams[1, :3] = _np(rodrigues_inv(R))
+        cams[1, 3:] = _np(t)
+        registered.append(1)
 
-    P1 = torch.eye(3, 4, dtype=R.dtype, device=dev)
-    X01 = _np(triangulate_dlt(P1, torch.cat([R, t.reshape(3, 1)], 1), x0, x1))
-    ok01 = _np(cheir)
-    tr_ids = np.nonzero(both)[0]
-    points[tr_ids[ok01]] = X01[ok01]
-    point_valid[tr_ids[ok01]] = True
+        P1 = torch.eye(3, 4, dtype=R.dtype, device=dev)
+        X01 = _np(triangulate_dlt(P1, torch.cat([R, t.reshape(3, 1)], 1), x0, x1))
+        ok01 = _np(cheir)
+        tr_ids = np.nonzero(both)[0]
+        points[tr_ids[ok01]] = X01[ok01]
+        point_valid[tr_ids[ok01]] = True
 
     # 4. register remaining views by PnP, then triangulate their new tracks
     def rotation(v):
@@ -132,7 +163,7 @@ def incremental_sfm(features, sizes, intr, cfg: PipelineConfig = PipelineConfig(
         rv, tv, _, n_in = pnp_ransac(on_dev(points[vis]), on_dev(obs_xyn[lookup[vis, v]]),
                                      torch.ones(n_vis, dtype=torch.bool, device=dev), focal,
                                      threshold_px=2.0 * cfg.ransac.threshold_px)
-        n_in = int(n_in)
+        n_in = _item(n_in)
         metrics[f"view{v}_pnp_inliers"] = n_in
         if n_in < max(12, n_vis // 8):
             metrics[f"view{v}"] = f"rejected (pnp inliers {n_in}/{n_vis})"
@@ -153,20 +184,21 @@ def incremental_sfm(features, sizes, intr, cfg: PipelineConfig = PipelineConfig(
         essential: BA over raw tracks drags poses toward data-association
         outliers instead of fixing them."""
         nonlocal cams, points, point_valid, obs_live
-        rm = np.zeros(V, bool)
-        rm[registered] = True
-        use = obs_live & point_valid[obs_pt_np] & rm[obs_cam_np]
-        obs_i = Observations(xy=obs.xy, cam=obs.cam, pt=obs.pt, mask=on_dev(use))
-        c_t, p_t, _ = run_ba(on_dev(cams), on_dev(points), obs_i, iters)
-        cams = _np(c_t).copy()
-        points = np.where(point_valid[:, None], _np(p_t), points)
-        # prune gross-reprojection observations, then points with < 2 obs
-        e = _reproj_errors(c_t, p_t, obs, K, dist)
-        med = np.median(e[use]) if use.any() else 0.0
-        thr = max(5.0, 3.0 * med)
-        obs_live &= ~(use & (e >= thr))
-        cnt = np.bincount(obs_pt_np[obs_live & rm[obs_cam_np]], minlength=P)
-        point_valid &= cnt >= 2
+        with span("sfm_seq.ba"):
+            rm = np.zeros(V, bool)
+            rm[registered] = True
+            use = obs_live & point_valid[obs_pt_np] & rm[obs_cam_np]
+            obs_i = Observations(xy=obs.xy, cam=obs.cam, pt=obs.pt, mask=on_dev(use))
+            c_t, p_t, _ = run_ba(on_dev(cams), on_dev(points), obs_i, iters)
+            cams = _np(c_t).copy()
+            points = np.where(point_valid[:, None], _np(p_t), points)
+            # prune gross-reprojection observations, then points with < 2 obs
+            e = _reproj_errors(c_t, p_t, obs, K, dist)
+            med = np.median(e[use]) if use.any() else 0.0
+            thr = max(5.0, 3.0 * med)
+            obs_live &= ~(use & (e >= thr))
+            cnt = np.bincount(obs_pt_np[obs_live & rm[obs_cam_np]], minlength=P)
+            point_valid &= cnt >= 2
 
     def triangulate_new():
         """Triangulate tracks not yet valid but observed in >=2 registered
@@ -199,13 +231,20 @@ def incremental_sfm(features, sizes, intr, cfg: PipelineConfig = PipelineConfig(
             points[pid[okz]] = Xn[okz]
             point_valid[pid[okz]] = True
 
+    def register(v):
+        """try_register, and on success the view's new points."""
+        with span("sfm_seq.register"):
+            if not try_register(v):
+                return False
+            registered.append(v)
+            triangulate_new()
+            return True
+
     failed = []
     for v in range(2, V):
-        if not try_register(v):
+        if not register(v):
             failed.append(v)
             continue
-        registered.append(v)
-        triangulate_new()
         # keep the growing map clean for the next view's PnP
         interim_ba(4)
 
@@ -213,11 +252,9 @@ def incremental_sfm(features, sizes, intr, cfg: PipelineConfig = PipelineConfig(
     # a drifted/outlier-heavy map often succeeds once the map has been
     # refined by the views that did register.
     for v in list(failed):
-        if try_register(v):
-            registered.append(v)
+        if register(v):
             failed.remove(v)
             metrics[f"view{v}_registered_on_retry"] = 1
-            triangulate_new()
             interim_ba(4)
     registered.sort()
 
@@ -231,22 +268,25 @@ def incremental_sfm(features, sizes, intr, cfg: PipelineConfig = PipelineConfig(
     # error are data-association failures BA cannot repair -- drop their
     # observations and re-solve.
     for ba_round in range(2):
+        with span("sfm_seq.ba"):
+            obs_ba = Observations(xy=obs.xy, cam=obs.cam, pt=obs.pt, mask=on_dev(use))
+            cams_t, points_t, costs = run_ba(cams_t, points_t, obs_ba)
+            e = _reproj_errors(cams_t, points_t, obs_ba, K, dist)
+            med = np.median(e[use]) if use.any() else 0.0
+            thr = max(5.0, 3.0 * med)
+            new_use = use & (e < thr)
+            # drop points reduced below 2 observations
+            cnt = np.bincount(obs_pt_np[new_use], minlength=P)
+            new_use &= (cnt >= 2)[obs_pt_np]
+            point_valid &= cnt >= 2
+            metrics[f"ba_round{ba_round}_dropped"] = int(use.sum() - new_use.sum())
+            use = new_use
+    with span("sfm_seq.ba"):
         obs_ba = Observations(xy=obs.xy, cam=obs.cam, pt=obs.pt, mask=on_dev(use))
         cams_t, points_t, costs = run_ba(cams_t, points_t, obs_ba)
-        e = _reproj_errors(cams_t, points_t, obs_ba, K, dist)
-        med = np.median(e[use]) if use.any() else 0.0
-        thr = max(5.0, 3.0 * med)
-        new_use = use & (e < thr)
-        # drop points reduced below 2 observations
-        cnt = np.bincount(obs_pt_np[new_use], minlength=P)
-        new_use &= (cnt >= 2)[obs_pt_np]
-        point_valid &= cnt >= 2
-        metrics[f"ba_round{ba_round}_dropped"] = int(use.sum() - new_use.sum())
-        use = new_use
-    obs_ba = Observations(xy=obs.xy, cam=obs.cam, pt=obs.pt, mask=on_dev(use))
-    cams_t, points_t, costs = run_ba(cams_t, points_t, obs_ba)
-    metrics["ba_costs"] = _np(costs)
-    metrics["reproj_error_px"] = float(mean_reprojection_error(cams_t, points_t, obs_ba, K, dist))
+        metrics["ba_costs"] = _np(costs)
+        metrics["reproj_error_px"] = float(_item(mean_reprojection_error(cams_t, points_t,
+                                                                         obs_ba, K, dist)))
     metrics["n_registered"] = len(registered)
     metrics["n_points"] = int(point_valid.sum())
     return {

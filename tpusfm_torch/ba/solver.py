@@ -21,6 +21,8 @@ The port of tpusfm's flat solver (the one ``incremental_sfm`` runs):
 * ``reduce_fn`` (the block builders and the LM loop) sums the segment sums
   over processes where the observation axis is sharded
   (tpusfm_torch/dist/sharded_ba.py); None on one process.
+* A call records the span ``ba.solve`` (tpusfm_torch/utils/timing.py),
+  its items the LM iterations it runs.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from tpusfm_torch.config import BaConfig
 from tpusfm_torch.geometry.projection import distort, project_points, rodrigues
 from tpusfm_torch.utils.jacobian import rowwise_jacobian
 from tpusfm_torch.utils.segment import OneHotPlan, SegmentPlan
+from tpusfm_torch.utils.timing import span
 
 
 def _residuals(cams, X, cam, xy, K, dist):
@@ -235,21 +238,22 @@ def bundle_adjust(cams, points, obs: Observations, K, dist,
     Returns (cams, points, costs (iters,)) -- costs for convergence logging.
     ``obs`` may be one shard of the observations, with ``reduce_fn``
     summing over the shards (every process then takes the same steps)."""
-    delta = cfg.huber_delta
-    lam = torch.tensor(cfg.init_lambda, dtype=cams.dtype, device=cams.device)
-    plans = normal_plans(obs, cams.shape[0], points.shape[0], cams.dtype)
-    costs = []
-    for _ in range(cfg.max_iters):
-        U, Vp, W, g_c, g_p, cost = build_normal_blocks(cams, points, obs, K, dist, delta,
-                                                       reduce_fn, plans)
-        dc, dp = schur_solve(U, Vp, W, g_c, g_p, lam, n_fixed_cams)
-        new_cost = compute_cost(cams + dc, points + dp, obs, K, dist, delta, reduce_fn)
-        accept = new_cost < cost
-        cams, points, cost = lm_update(accept, (cams + dc, points + dp, new_cost),
-                                       (cams, points, cost))
-        lam = next_lambda(accept, lam, cfg)
-        costs.append(cost)
-    return cams, points, torch.stack(costs)
+    with span("ba.solve", cfg.max_iters):
+        delta = cfg.huber_delta
+        lam = torch.tensor(cfg.init_lambda, dtype=cams.dtype, device=cams.device)
+        plans = normal_plans(obs, cams.shape[0], points.shape[0], cams.dtype)
+        costs = []
+        for _ in range(cfg.max_iters):
+            U, Vp, W, g_c, g_p, cost = build_normal_blocks(cams, points, obs, K, dist, delta,
+                                                           reduce_fn, plans)
+            dc, dp = schur_solve(U, Vp, W, g_c, g_p, lam, n_fixed_cams)
+            new_cost = compute_cost(cams + dc, points + dp, obs, K, dist, delta, reduce_fn)
+            accept = new_cost < cost
+            cams, points, cost = lm_update(accept, (cams + dc, points + dp, new_cost),
+                                           (cams, points, cost))
+            lam = next_lambda(accept, lam, cfg)
+            costs.append(cost)
+        return cams, points, torch.stack(costs)
 
 
 def mean_reprojection_error(cams, points, obs: Observations, K, dist):
