@@ -93,11 +93,13 @@ def test_a_key_is_eager_then_captured_then_replayed(monkeypatch):
     sight runs the body eagerly, at the second it is captured, then it
     replays inside the replay span; a replay makes its key the most
     recently used."""
-    made = []
+    made, captures = [], []
 
     class Captured:
-        def __init__(self, x, body):
+        def __init__(self, x, body, heir_of=None):
             made.append(x)
+            captures.append(self)
+            self.heir_of = heir_of
             self.out = body(x, lambda name, fn, *args: replay._eager(name + ".captured", fn, *args))
 
         def replay(self, x):
@@ -117,6 +119,8 @@ def test_a_key_is_eager_then_captured_then_replayed(monkeypatch):
     assert seen[0] == [("stage.one", 1)] and seen[1] == [("stage.one.captured", 1)]
     assert seen[2] == seen[5] == [("stage.replay", 3)]
     assert list(graphs._held) == [("a", replay._math_modes()), ("c", replay._math_modes())]
+    # c's capture, past the two keys held, took over b's, the least recently used
+    assert [c.heir_of for c in captures] == [None, None, captures[1]]
 
 
 def test_the_cache_drops_its_least_recently_used_fifth_key():

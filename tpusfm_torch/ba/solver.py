@@ -23,6 +23,13 @@ The port of tpusfm's flat solver (the one ``incremental_sfm`` runs):
   (tpusfm_torch/dist/sharded_ba.py); None on one process.
 * A call records the span ``ba.solve`` (tpusfm_torch/utils/timing.py),
   its items the LM iterations it runs.
+* On the card, with no ``reduce_fn``, an LM iteration runs eagerly at its
+  key's first sight, is captured as a CUDA graph at the second and
+  replays it from then on (features/replay.py). It is a function of the
+  state (cams, points, lambda) and of the tensors fixed within a solve
+  (the observations, K, dist, the plans' tables), all passed in, so a
+  graph kept past its solve reads none of that solve's buffers. The
+  results are the eager loop's, bit for bit.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import torch
 
 from tpusfm_torch.ba.tracks import Observations
 from tpusfm_torch.config import BaConfig
+from tpusfm_torch.features.replay import StagedGraphs
 from tpusfm_torch.geometry.projection import distort, project_points, rodrigues
 from tpusfm_torch.utils.jacobian import rowwise_jacobian
 from tpusfm_torch.utils.segment import OneHotPlan, SegmentPlan
@@ -121,6 +129,16 @@ class NormalPlans:
     cams: OneHotPlan
     points: SegmentPlan
     cross: SegmentPlan
+
+    def tensors(self) -> tuple:
+        """The tensors the plans read, a tuple a plan."""
+        return self.cams.tensors(), self.points.tensors(), self.cross.tensors()
+
+    def reading(self, tensors) -> NormalPlans:
+        """These plans reading ``tensors`` (as tensors() gives them) in
+        place of their own."""
+        return NormalPlans(*(p.reading(t) for p, t in
+                             zip((self.cams, self.points, self.cross), tensors, strict=True)))
 
 
 def normal_plans(obs: Observations, n_cams: int, n_points: int,
@@ -231,27 +249,72 @@ def next_lambda(accept, lam, cfg: BaConfig):
     return torch.clamp(torch.where(accept, lam * cfg.lambda_down, lam * cfg.lambda_up), 1e-9, 1e6)
 
 
+def lm_iteration(cams, points, lam, obs: Observations, K, dist, cfg: BaConfig,
+                 n_fixed_cams: int, plans: NormalPlans, reduce_fn=None):
+    """One LM iteration from the state (cams, points, lam): the blocks at the
+    current linearization, the damped Schur step, its cost, accept/reject
+    and the next damping. Returns (cams, points, lam, cost)."""
+    U, Vp, W, g_c, g_p, cost = build_normal_blocks(cams, points, obs, K, dist, cfg.huber_delta,
+                                                   reduce_fn, plans)
+    dc, dp = schur_solve(U, Vp, W, g_c, g_p, lam, n_fixed_cams)
+    new_cost = compute_cost(cams + dc, points + dp, obs, K, dist, cfg.huber_delta, reduce_fn)
+    accept = new_cost < cost
+    cams, points, cost = lm_update(accept, (cams + dc, points + dp, new_cost),
+                                   (cams, points, cost))
+    return cams, points, next_lambda(accept, lam, cfg), cost
+
+
+# The LM iteration captured as CUDA graphs, by its shapes and constants
+_GRAPHS = StagedGraphs("ba.iteration", max_keys=4)
+
+
+def _shapes(x):
+    """The shapes and dtypes of the tensors of ``x``, in its structure."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.dtype
+    if dataclasses.is_dataclass(x):
+        return tuple(_shapes(getattr(x, f.name)) for f in dataclasses.fields(x))
+    return tuple(_shapes(v) for v in x)
+
+
+def _replayed_iteration(cams, points, lam, obs, K, dist, cfg, n_fixed_cams, plans):
+    """lm_iteration through _GRAPHS: eager at a key's first sight, captured
+    at its second (one graph, the dense solve's cuSOLVER calls included),
+    replayed after. Every tensor it reads is an input, and the key fixes
+    their shapes and every constant the graphs bake in."""
+    x = (cams, points, lam, obs, K, () if dist is None else (dist,), plans.tensors())
+
+    def body(x, run):
+        cams, points, lam, obs, K, dist, tensors = x
+        return run("ba.iteration.stage", lm_iteration, cams, points, lam, obs, K,
+                   dist[0] if dist else None, cfg, n_fixed_cams, plans.reading(tensors))
+
+    key = (_shapes(x), cams.device, n_fixed_cams, cfg.huber_delta, cfg.lambda_up,
+           cfg.lambda_down)
+    return _GRAPHS(key, x, 1, body)
+
+
 def bundle_adjust(cams, points, obs: Observations, K, dist,
                   cfg: BaConfig = BaConfig(), n_fixed_cams: int = 1, reduce_fn=None):
     """LM bundle adjustment. cams (V,6) [rvec|tvec]; points (P,3).
 
     Returns (cams, points, costs (iters,)) -- costs for convergence logging.
     ``obs`` may be one shard of the observations, with ``reduce_fn``
-    summing over the shards (every process then takes the same steps)."""
+    summing over the shards (every process then takes the same steps); that
+    loop, and the CPU's, run eagerly."""
     with span("ba.solve", cfg.max_iters):
-        delta = cfg.huber_delta
         lam = torch.tensor(cfg.init_lambda, dtype=cams.dtype, device=cams.device)
         plans = normal_plans(obs, cams.shape[0], points.shape[0], cams.dtype)
+        # the graph cache's eager path (the CPU's) would record a span an iteration
+        replayed = cams.is_cuda and reduce_fn is None
         costs = []
         for _ in range(cfg.max_iters):
-            U, Vp, W, g_c, g_p, cost = build_normal_blocks(cams, points, obs, K, dist, delta,
-                                                           reduce_fn, plans)
-            dc, dp = schur_solve(U, Vp, W, g_c, g_p, lam, n_fixed_cams)
-            new_cost = compute_cost(cams + dc, points + dp, obs, K, dist, delta, reduce_fn)
-            accept = new_cost < cost
-            cams, points, cost = lm_update(accept, (cams + dc, points + dp, new_cost),
-                                           (cams, points, cost))
-            lam = next_lambda(accept, lam, cfg)
+            if replayed:
+                cams, points, lam, cost = _replayed_iteration(cams, points, lam, obs, K, dist,
+                                                              cfg, n_fixed_cams, plans)
+            else:
+                cams, points, lam, cost = lm_iteration(cams, points, lam, obs, K, dist, cfg,
+                                                       n_fixed_cams, plans, reduce_fn)
             costs.append(cost)
         return cams, points, torch.stack(costs)
 

@@ -27,8 +27,15 @@ outputs into those of the capture, where the graphs after it read them.
 Called inside a captured stage, it ends that stage's graph, and the rest
 of the stage is captured into a new graph under the same name.
 
-Graphs are made only for CUDA inputs. At most ``max_keys`` keys are held;
-the least recently used is dropped with its memory pool.
+Graphs are made only for CUDA inputs. At most ``max_keys`` keys are held.
+A capture that would hold one more takes over the memory pool and the
+side stream of the least recently used key, whose graphs are then
+dropped and never replayed again. The caching allocator frees a dropped
+graph's pool only when a cudaMalloc fails, which it cannot retry inside
+a capture, so a caller whose shapes change from call to call (bundle
+adjustment: a key a solve) would otherwise fill the card with pools. The
+graphs of one ``StagedGraphs`` replay in the order of one stream, as
+every caller in the port runs them.
 """
 from __future__ import annotations
 
@@ -101,15 +108,22 @@ class _Again:
 class _Captured:
     """One key's graphs, captured from ``body(x, run)``, and their static
     input and outputs. The capture replays each graph as soon as it is
-    made, so ``out`` holds this call's outputs when it returns."""
+    made, so ``out`` holds this call's outputs when it returns. It makes a
+    memory pool and a side stream, or takes those of ``heir_of``, a key's
+    graphs about to be dropped."""
 
-    def __init__(self, x, body):
+    def __init__(self, x, body, heir_of: "_Captured | None" = None):
         self.inp = _clone(x)
         self.stages = []                          # (name, graph or _Again), in order
-        pool = torch.cuda.graph_pool_handle()
         dev = _device(x)
+        if heir_of is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.side = torch.cuda.Stream(dev)    # the legacy stream cannot be captured
+        else:
+            # the allocator reuses a pool's free blocks on the stream they were made on
+            self.pool, self.side = heir_of.pool, heir_of.side
+        pool, side = self.pool, self.side
         caller = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)             # the legacy stream cannot be captured
         side.wait_stream(caller)
         capturing = None                          # the open graph's stage name
 
@@ -194,7 +208,8 @@ class StagedGraphs:
                     return held.replay(x)
             if key in self._seen:
                 del self._seen[key]
-                held = _Captured(x, body)
+                full = len(self._held) >= self.max_keys
+                held = _Captured(x, body, next(iter(self._held.values())) if full else None)
                 self.hold(key, held)
                 return _clone(held.out)
             _put(self._seen, key, None, 16 * self.max_keys)

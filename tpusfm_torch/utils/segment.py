@@ -25,6 +25,7 @@ same code as the card.
 """
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -49,6 +50,17 @@ class OneHotPlan:
         """values (rows, ...) -> their sums by key (n_keys, ...)."""
         out = self.matrix @ values.reshape(self.n_rows, math.prod(values.shape[1:]))
         return out.reshape(self.n_keys, *values.shape[1:])
+
+    def tensors(self) -> tuple:
+        """The tensors the plan reads."""
+        return (self.matrix,)
+
+    def reading(self, tensors) -> OneHotPlan:
+        """This plan reading ``tensors`` (as tensors() gives them) in place
+        of its own."""
+        plan = copy.copy(self)
+        (plan.matrix,) = tensors
+        return plan
 
 
 def _tables(seg: torch.Tensor, counts: torch.Tensor, rows: torch.Tensor,
@@ -119,3 +131,16 @@ class SegmentPlan:
     def sum(self, values: torch.Tensor) -> torch.Tensor:
         """values (rows, ...) -> their sums by key (n_keys, ...)."""
         return self.reduce(self.gather(values).sum(1))
+
+    def tensors(self) -> tuple:
+        """The tensors the plan reads: its tables (2-D), then ``present``
+        (1-D) unless it is None."""
+        return (*self.tables, *(() if self.present is None else (self.present,)))
+
+    def reading(self, tensors) -> SegmentPlan:
+        """This plan reading ``tensors`` (as tensors() gives them) in place
+        of its own."""
+        plan = copy.copy(self)
+        n = len(self.tables)
+        plan.tables, plan.present = list(tensors[:n]), tensors[n] if len(tensors) > n else None
+        return plan
