@@ -11,7 +11,8 @@ and bf16) and calibration on the card against the CPU; both BA solvers,
 both pose-graph solvers and incremental_sfm twice in the default mode, bit
 for bit equal, and incremental_sfm so on the 756x567 rail; the
 sequence cell's step at its full size against the benchmark's plain
-reference; the ring NN search
+reference; BAL's 9-parameter solve against its plain reference (float64,
+and float32 twice, bit for bit); the ring NN search
 over two ranks sharing the card (gloo) against one nn_search call, the
 pipelined two-view path over two ranks sharing the card against the serial
 stage chain on the card, the CLI's sfm on the card, and the two-view bench
@@ -504,6 +505,55 @@ def test_cuda_sequence_cell_step_matches_the_reference(cuda_device):
         got = driver.compare(prog, ref)
     assert prog["registered"] == ref["registered"] == list(range(6))
     assert all(got[k] <= lim for k, lim in traffic["limits"].items()), got
+
+
+@pytest.mark.cuda
+def test_cuda_bal_solve_matches_the_reference(cuda_device):
+    """bundle_adjust_bal (BAL's 9-parameter cameras through the track-major
+    solver) on the card against the plain reference on the card
+    (benchmark/reference/bal.py): in float64 on 12 cameras, 6 LM
+    iterations, the costs to 1e-9 relative and the cameras to 4e-4 (the
+    CPU test's tolerances: the same sums in other orders); in float32 on
+    100 cameras, 20 iterations, the final cost within 1e-3 of the
+    reference's, as reported and as the returned cameras and points give
+    it in float64, under 1 px, and two program solves bit for bit equal
+    (the camera sums run in the segment plan's fixed order)."""
+    import numpy as np
+
+    from benchmark.bal_scene import make_problem
+    from benchmark.reference import bal as ref
+    from tpusfm_torch.ba.bal import bundle_adjust_bal
+    from tpusfm_torch.config import BaConfig
+    from tpusfm_torch.io.bal import BalProblem
+
+    def problem(size, dtype):
+        start, _ = make_problem(3, *size)
+        xy = start.xy.astype(np.float32).astype(np.float64)
+        return BalProblem(*(torch.as_tensor(a, dtype=dtype, device=cuda_device)
+                            for a in (start.cams, start.points)),
+                          *(torch.as_tensor(a, device=cuda_device) for a in (start.cam, start.pt)),
+                          torch.as_tensor(xy, dtype=dtype, device=cuda_device))
+
+    p = problem((12, 300, 1200, 6), torch.float64)
+    cfg = BaConfig(max_iters=6)
+    out = bundle_adjust_bal(p, cfg, device=cuda_device, dtype=torch.float64)
+    c, _, costs, _ = ref.bundle_adjust(p.cams, p.points, p.cam, p.pt, p.xy, cfg)
+    np.testing.assert_allclose(out["costs"], costs.cpu().numpy(), rtol=1e-9)
+    np.testing.assert_allclose(out["cams"], c.cpu().numpy(), rtol=0, atol=4e-4)
+    p = problem((100, 9083, 39391, 16), torch.float32)
+    first, second = (bundle_adjust_bal(p, device=cuda_device) for _ in range(2))
+    c, X, costs, _ = ref.bundle_adjust(p.cams, p.points, p.cam, p.pt, p.xy)
+    assert abs(first["costs"][-1] / float(costs[-1]) - 1) < 1e-3
+    assert first["reproj_error_px"] < 1.0
+
+    def answer_cost(cams, points):
+        c, X = (torch.as_tensor(np.asarray(a.cpu() if torch.is_tensor(a) else a),
+                                dtype=torch.float64, device=cuda_device) for a in (cams, points))
+        return float(ref.huber_cost(ref.project(c[p.cam.long()], X[p.pt.long()])
+                                    - p.xy.double(), 2.0))
+    assert abs(answer_cost(first["cams"], first["points"]) / answer_cost(c, X) - 1) < 1e-3
+    for k in ("cams", "points", "costs"):
+        np.testing.assert_array_equal(first[k], second[k])
 
 
 @pytest.mark.cuda

@@ -115,6 +115,13 @@ def chain_block_one(cams, R, dRdw, cam_id, pt3, xy, m, K, dist, delta):
     dXc_dw = torch.einsum("...ijk,...j->...ik", dRdw[c], pt3)         # (..., 3, 3)
     A = torch.cat([Jc @ dXc_dw, Jc], -1)
     B = Jc @ Rc
+    return huber_weighted(A, B, r, m, delta)
+
+
+def huber_weighted(A, B, r, m, delta):
+    """The blocks A (..., 2, w), B (..., 2, 3) and residuals r (..., 2) of
+    observations, each row times its IRLS Huber sqrt-weight and the mask
+    m: masked and degenerate rows give exact zeros, not NaN * 0."""
     w = _huber_weight((r * r).sum(-1), delta) * m.to(r.dtype)
     return (torch.nan_to_num(A) * w[..., None, None], torch.nan_to_num(B) * w[..., None, None],
             torch.nan_to_num(r) * w[..., None])
@@ -199,9 +206,10 @@ def sym3_inv(Vd):
 
 
 def damp_cams(U, lam):
-    """LM damping of the camera blocks (multiplicative, Marquardt style)."""
-    e6 = torch.eye(6, dtype=U.dtype, device=U.device)
-    return U + lam * U * e6 + 1e-8 * e6
+    """LM damping of the camera blocks (V, w, w) (multiplicative, Marquardt
+    style)."""
+    e = torch.eye(U.shape[-1], dtype=U.dtype, device=U.device)
+    return U + lam * U * e + 1e-8 * e
 
 
 def damp_points_inv(Vp, lam):
@@ -211,22 +219,30 @@ def damp_points_inv(Vp, lam):
 
 
 def block_diag(D):
-    """(V, 6, 6) blocks -> the (V, 6, V, 6) block diagonal."""
+    """(V, w, w) blocks -> the (V, w, V, w) block diagonal."""
     eye = torch.eye(D.shape[0], dtype=D.dtype, device=D.device)
     return eye[:, None, :, None] * D[:, :, None, :]
 
 
-def solve_cameras(S, rhs, n_fixed_cams: int):
-    """The reduced camera system S (V,6,V,6) dc = rhs (V,6), with the first
+def solve_cameras(S, rhs, n_fixed_cams: int, jacobi: bool = False):
+    """The reduced camera system S (V,w,V,w) dc = rhs (V,w), with the first
     n_fixed_cams cameras frozen (gauge fixing). One f32 dense solve whose
     error check stays on the device (a singular system gives non-finite
-    steps, which the LM test rejects)."""
-    Vn = rhs.shape[0]
+    steps, which the LM test rejects). ``jacobi`` solves the system scaled
+    to a unit diagonal, D^-1/2 S D^-1/2 (D^1/2 dc) = D^-1/2 rhs, as Ceres
+    does: parameters of unlike units (BAL's focal length in pixels beside
+    its rotation in radians) otherwise leave f32 too few digits."""
+    Vn, w = rhs.shape
     free = (torch.arange(Vn, device=rhs.device) >= n_fixed_cams).to(rhs.dtype)
     Sf = S * free[:, None, None, None] * free[None, None, :, None]
-    Sf = Sf.reshape(Vn * 6, Vn * 6) + torch.diag(torch.repeat_interleave(1.0 - free, 6))
-    dc = torch.linalg.solve_ex(Sf, (rhs * free[:, None]).reshape(-1, 1))[0]
-    return dc.reshape(Vn, 6) * free[:, None]
+    Sf = Sf.reshape(Vn * w, Vn * w) + torch.diag(torch.repeat_interleave(1.0 - free, w))
+    b = (rhs * free[:, None]).reshape(-1, 1)
+    if jacobi:
+        d = torch.rsqrt(torch.diagonal(Sf))[:, None]
+        dc = torch.linalg.solve_ex(Sf * d * d.T, b * d)[0] * d
+    else:
+        dc = torch.linalg.solve_ex(Sf, b)[0]
+    return dc.reshape(Vn, w) * free[:, None]
 
 
 def schur_solve(U, Vp, W, g_c, g_p, lam, n_fixed_cams: int):

@@ -1,4 +1,6 @@
-"""tpusfm_torch command-line interface: tpusfm's nine subcommands on the port.
+"""tpusfm_torch command-line interface: tpusfm's nine subcommands on the
+port, and ``ba`` (bundle adjustment of a BAL problem file), which tpusfm
+lacks.
 
   match      feature matching comparison (BF vs GMS vs LOGOS), with the
              rotation/rescale robustness probes of main.cpp:29-47
@@ -9,6 +11,7 @@
   disparity  match-based disparity RMS benchmark (DisparityUtil.cpp:430-461)
   stereo     StereoBM dense disparity demo (DisparityUtil.cpp:22-49)
   portrait   synthetic-bokeh portrait mode (DisparityUtil.cpp:274-428)
+  ba         bundle adjustment of a BAL problem file (--bal FILE)
   bench      one-line JSON performance benchmark
 
 Flags, defaults and outputs (npz keys, PLY, PNG, match_report.json, the
@@ -397,6 +400,31 @@ def cmd_portrait(args):
     print(f"fg={fg.mean():.2%}  {time.time()-t0:.1f}s -> {args.out}/portrait.png")
 
 
+def cmd_ba(args):
+    """Bundle adjustment of a BAL problem file (Ceres's bundle_adjuster
+    --input): 9-parameter cameras through the track-major solver."""
+    from dataclasses import replace
+
+    from tpusfm_torch.ba.bal import bundle_adjust_bal
+    from tpusfm_torch.config import BaConfig
+    from tpusfm_torch.io.bal import read_bal, write_bal
+    from tpusfm_torch.viz import write_ply
+
+    prob = read_bal(args.bal)
+    nc, npt, no = prob.counts
+    print(f"  {os.path.basename(args.bal)}: {nc} cameras, {npt} points, {no} observations")
+    out = bundle_adjust_bal(prob, BaConfig(max_iters=args.iters), device=args.device)
+    print(f"  ba cost: {out['initial_cost']:.4f} -> {float(out['costs'][-1]):.4f} "
+          f"({args.iters} LM iters)")
+    print(f"  reproj_error_px={out['reproj_error_px']:.3f}")
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, "ba_adjusted.txt")
+    write_bal(path, replace(prob, cams=out["cams"].astype(np.float64),
+                            points=out["points"].astype(np.float64)))
+    write_ply(os.path.join(args.out, "ba_points.ply"), out["points"])
+    print("->", path)
+
+
 def cmd_bench(args):
     if args.ba:
         from tpusfm_torch.bench import scaling
@@ -422,6 +450,7 @@ def _device():
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from tpusfm_torch.config import BaConfig
     from tpusfm_torch.io.dataset import source_image
 
     p = argparse.ArgumentParser(prog="tpusfm_torch", description=__doc__,
@@ -520,6 +549,13 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--threshold", type=float, default=60.0)
     common(sp, out="out")
     sp.set_defaults(fn=cmd_portrait)
+
+    sp = sub.add_parser("ba", help="bundle adjustment of a BAL problem file")
+    sp.add_argument("--bal", required=True,
+                    help="a problem in BAL's text format (Bundle Adjustment in the Large)")
+    sp.add_argument("--iters", type=int, default=BaConfig().max_iters)
+    sp.add_argument("--out", default="out")
+    sp.set_defaults(fn=cmd_ba)
 
     sp = sub.add_parser("bench", help="one-line JSON benchmark")
     sp.add_argument("--ba", action="store_true",
