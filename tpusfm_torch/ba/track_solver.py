@@ -35,6 +35,15 @@ camera system) and ``ba_tm.update`` (the points, the new cost, accept or
 reject); ba/bal.py records ``ba_tm.solve`` around them. ``to_track_major``
 counts, cumulatively, the live slots, the padded slots and the live slot
 pairs it lays out (``live_slots``, ``padded_slots``, ``slot_pairs``).
+
+The reduced camera system is banded where every track is seen by cameras
+close in their order (a street capture, a video): ``camera_band`` reads
+the widest camera gap b of a slot pair from the pair plan once a call, and
+each iteration solves S_r by LU over that band, in chunks of b + 1
+cameras (ba/band.py); one chunk is solver.solve_cameras' dense solve.
+``bundle_adjust_tm`` counts its camera solves and, of those, the ones that
+ran the band LU over two chunks or more (``camera_solves``,
+``band_solves``, cumulative).
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpusfm_torch.ba.band import band_solve_cameras
 from tpusfm_torch.ba.camera import Pinhole
 from tpusfm_torch.ba.solver import (_huber_cost, block_diag, damp_cams, damp_points_inv,
                                     lm_update, next_lambda, solve_cameras)
@@ -54,6 +64,8 @@ from tpusfm_torch.utils.timing import span
 live_slots = 0      # observations laid out by to_track_major, cumulative
 padded_slots = 0    # slots it left empty (masked), cumulative
 slot_pairs = 0      # pairs of live slots of a track (the Schur terms), cumulative
+camera_solves = 0   # reduced camera solves of bundle_adjust_tm, cumulative
+band_solves = 0     # those solved by the band LU over two chunks or more
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +164,22 @@ def schur_plans(tobs: TrackObservations, n_cams: int) -> SchurPlans:
                                         m[:, :, None] & m[:, None, :]))
 
 
+def camera_band(plans: SchurPlans, n_cams: int, reduce_fn=None) -> int:
+    """The half-band b = max |cam_s - cam_t| over the slot pairs that hold
+    Schur terms: S_r's blocks (i, j) are zero where |i - j| > b. With
+    ``reduce_fn`` the band is the group's (a histogram of the gaps, summed
+    over the shards). One host read."""
+    keys = plans.pairs.present
+    dev = plans.pairs.tables[0].device
+    if keys is None:                                # every camera pair holds terms
+        keys = torch.arange(n_cams * n_cams, device=dev)
+    seen = torch.zeros(n_cams, dtype=torch.float32, device=dev)
+    seen[(keys // n_cams - keys % n_cams).abs()] = 1.0
+    if reduce_fn is not None:
+        (seen,) = reduce_fn(seen)
+    return int((torch.arange(n_cams, device=dev) * (seen > 0)).max())
+
+
 def tm_normal_and_schur(cams, points, tobs: TrackObservations, K, dist, delta, lam,
                         reduce_fn=None, plans: SchurPlans | None = None, model=None):
     """One linearization: returns (S_r (V,w,V,w) Schur-reduced camera system,
@@ -215,19 +243,23 @@ def bundle_adjust_tm(cams, points, tobs: TrackObservations, K, dist,
     ``reduce_fn`` summing over the shards; the points returned are then
     the shard's. ``model`` is the camera model (ba/camera.py), the pinhole
     with K and dist when None; cams is (V, model.width)."""
+    global camera_solves, band_solves
     model = model or Pinhole(K, dist)
     delta = cfg.huber_delta
     lam = torch.tensor(cfg.init_lambda, dtype=cams.dtype, device=cams.device)
     # the current cost rides along: one residual pass per iteration
     cost = tm_cost(cams, points, tobs, K, dist, delta, reduce_fn, model)
     plans = schur_plans(tobs, cams.shape[0])
+    chunk = camera_band(plans, cams.shape[0], reduce_fn) + 1
     costs = []
     for _ in range(cfg.max_iters):
         with span("ba_tm.linearize"):
             S_r, rhs, aux = tm_normal_and_schur(cams, points, tobs, K, dist, delta, lam,
                                                 reduce_fn, plans, model)
         with span("ba_tm.camera_solve"):
-            dc = solve_cameras(S_r, rhs, n_fixed_cams, model.jacobi)
+            dc = band_solve_cameras(S_r, rhs, n_fixed_cams, model.jacobi, chunk)
+        camera_solves += 1
+        band_solves += int(chunk < cams.shape[0])
         with span("ba_tm.update"):
             dp = tm_back_substitute(tobs, aux, dc)
             new_cost = tm_cost(cams + dc, points + dp, tobs, K, dist, delta, reduce_fn, model)
